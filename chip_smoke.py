@@ -8,8 +8,8 @@ Phases, one printed line each (or more):
 2. each kernel against its plain PyTorch version on the card, at the
    main path's shapes (1080², tile 32, cap 512 for the mesh z-buffer,
    cap 768 and one channel for the point composite), with both times;
-3. generate a synthetic-tube scene on the card: 6 frames at 1080²,
-   skinning field (129, 225, 65);
+3. generate a synthetic-tube scene on the card: 32 frames at 1080² (more
+   than the DCT prior's window of 30), skinning field (129, 225, 65);
 4. build the network on it at the flagship widths (SDF 8×512 + 256
    features, translator 4×512 with 128-d latents, render 4×512), the
    coarse seg3d pyramid and the production caps;
@@ -21,12 +21,29 @@ Phases, one printed line each (or more):
    the plain versions in place of the kernels: same masks, same seeds;
 8. each kernel against its plain version on the very arguments the main
    path gave it in phase 7 (3 frames at 540², tile 32; cap 512 for the
-   seeding z-buffer, cap 1536 for the mask composite), with both times.
+   seeding z-buffer, cap 1536 for the mask composite), with both times;
+9. the composite's backward (K3) against its plain version on the 1080²
+   sphere of phase 2 with a seeded upstream gradient, cap 768, one and
+   two channels, with and without the feature gradient;
+10. six training steps (``train_step``) over batches of 3 frames, the
+    first one remeshing, with per-phase CUDA-event times (remesh, ② pc
+    forward + backward, vertex update, rays, solve, ③ main forward +
+    backward, global update), the first step reported apart; every info
+    scalar, gradient norm and parameter finite, rays converged, the
+    trained leaves moved and the frozen ones (shape, camera quat) not,
+    the launch counts of all three kernels, peak device memory;
+11. the ② branch of a training batch, forward and backward, once with
+    the kernels and once with the plain versions: same loss, vertex and
+    translator gradients;
+12. K3 against its plain version on the arguments the training step gave
+    it (3 frames at 540², cap 1536, one channel, no feature gradient),
+    with both times.
 
-Then a JSON line with each kernel's record (launches from phase 6, error
-and times from phase 8), the card's name and power limit, and last
-``{"ok": true, "device": {...}}``. Any failure raises and the exit code
-is not 0. Without CUDA it exits with 2 before any work.
+Then a JSON line with each kernel's record (launches from the training
+run of phase 10, error and times from phases 8 and 12), the card's name
+and power limit, and last ``{"ok": true, "device": {...}}``. Any failure
+raises and the exit code is not 0. Without CUDA it exits with 2 before
+any work.
 """
 
 from __future__ import annotations
@@ -43,7 +60,8 @@ import time
 ROOT = osp.dirname(osp.abspath(__file__))
 RATIO = {"sdfRatio": 1.0, "deformerRatio": 0.5, "renderRatio": 1.0}
 IMAGE = 1080
-FRAMES = 6
+FRAMES = 32
+TRAIN_STEPS = 6
 SKINNER_RES = (129, 225, 65)
 
 
@@ -157,6 +175,54 @@ def check_kernels(dev) -> None:
     compare_composite_tiles("2", args)
 
 
+def compare_composite_bwd(tag: str, args) -> dict:
+    """K3 against its plain version on ``args`` (composite_tiles_bwd's
+    arguments): within 1e-5 of the largest plain entry, and the same bits
+    on a second launch; both times."""
+    import torch
+
+    from recmv_tpu_torch.ops.composite import _composite_tiles_bwd_torch, composite_tiles_bwd
+
+    with torch.no_grad():      # the recorded arguments may carry a graph
+        got, want = composite_tiles_bwd(*args), _composite_tiles_bwd_torch(*args)
+        again = composite_tiles_bwd(*args)
+        torch.cuda.synchronize()
+        pairs = [(a, b, c) for a, b, c in zip(got, want, again) if b is not None]
+        err = max((a - b).abs().max().item() for a, b, _ in pairs)
+        scale = max(b.abs().max().item() for _, b, _ in pairs)
+        same = all(torch.equal(a, c) for a, _, c in pairs)
+        ms, plain_ms = cuda_ms(lambda: composite_tiles_bwd(*args), 20), cuda_ms(
+            lambda: _composite_tiles_bwd_torch(*args), 3)
+    log(f"[{tag}] composite_tiles_bwd: frames {args[0].shape[0]} tiles {args[0].shape[1]} cap "
+        f"{args[0].shape[2]} channels {args[3].shape[2]} dfeat {bool(args[9])} max count "
+        f"{int(args[5].max())} max |plain| {scale:.4e} max abs err {err:.3e} deterministic "
+        f"{same} kernel {ms:.3f} ms plain {plain_ms:.3f} ms")
+    if err > 1e-5 * scale or not same or scale <= 0.0:
+        raise AssertionError("composite_tiles_bwd kernel disagrees with its plain version")
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms)
+
+
+def check_backward_kernel(dev) -> None:
+    """Phase 9: K3 on the dense 1080² sphere of phase 2, cap 768, with a
+    seeded upstream gradient; one channel (ones) and two (ones, a ramp),
+    with and without the feature gradient."""
+    import torch
+
+    from recmv_tpu_torch.ops.rasterizer import composite_tile_inputs
+
+    scr, _ = sphere_screen_mesh(dev)
+    P = scr.shape[1]
+    gen = torch.Generator(device=dev).manual_seed(1)
+    for C in (1, 2):
+        feats = torch.stack([torch.ones(P, device=dev),
+                             torch.linspace(0.0, 1.0, P, device=dev)], 1)[:, :C]
+        args = composite_tile_inputs(scr, 0.006, feats, (IMAGE, IMAGE), tile=32, cap=768)
+        B, T = args[0].shape[:2]
+        g = torch.randn(B, T, C, 32 * 32, generator=gen, device=dev)
+        for need in (False, True):
+            compare_composite_bwd("9", args + (32, g, need))
+
+
 @contextlib.contextmanager
 def rasterizer_kernels(composite, mesh):
     """Route the rasterizer's kernel calls through ``composite`` and
@@ -172,11 +238,16 @@ def rasterizer_kernels(composite, mesh):
 
 
 def recording(fn, store: dict, name: str):
-    """``fn`` that also keeps its last arguments in ``store[name]``."""
+    """``fn`` that also keeps its last arguments in ``store[name]`` and,
+    when its result requires grad, the gradient that reaches it in
+    ``store[name + ".grad"]`` (the upstream gradient of its backward)."""
 
     def call(*args):
         store[name] = args
-        return fn(*args)
+        out = fn(*args)
+        if getattr(out, "requires_grad", False):
+            out.register_hook(lambda g: store.__setitem__(name + ".grad", g))
+        return out
 
     return call
 
@@ -251,6 +322,131 @@ def timed_step(net, ds, fids, gen):
     return info, solved, wall, phase_ms
 
 
+def timed_train_step(net, ds, fids, gen):
+    """One training step with a CUDA event after each phase → (loss,
+    info, wall seconds, {phase: ms})."""
+    import torch
+
+    batch = ds.get_batch(fids)
+    events = [("start", torch.cuda.Event(enable_timing=True))]
+    events[0][1].record()
+
+    def mark(name):
+        e = torch.cuda.Event(enable_timing=True)
+        e.record()
+        events.append((name, e))
+
+    t0 = time.time()
+    loss, info = net.train_step(batch, fids, RATIO, generator=gen, timer=mark)
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    phase_ms = {n: events[i][1].elapsed_time(e) for i, (n, e) in enumerate(events[1:])}
+    return loss, info, wall, phase_ms
+
+
+def train(net, ds, batches, gen, store) -> dict:
+    """Phase 10: TRAIN_STEPS training steps from a fresh remesh, with the
+    kernels' launch counts reset just before and read just after; the
+    point composite's arguments and upstream gradient are recorded for
+    phase 12. Returns the launch counts."""
+    import numpy as np
+    import torch
+
+    from recmv_tpu_torch.ops import rasterizer
+    from recmv_tpu_torch.ops.composite import composite_tiles, composite_tiles_bwd
+    from recmv_tpu_torch.ops.mesh_raster import mesh_tiles
+
+    before = {k: v.detach().clone() for k, v in net.global_leaves().items()}
+    net.opt_times, net._remeshed_at = 0.0, -1.0          # a run starts with a remesh
+    torch.cuda.reset_peak_memory_stats()
+    steady = []
+    mesh_tiles.launches = composite_tiles.launches = composite_tiles_bwd.launches = 0
+    with rasterizer_kernels(recording(composite_tiles, store, "composite_tiles"),
+                            rasterizer.mesh_tiles):
+        for step, fids in enumerate(batches[:TRAIN_STEPS]):
+            bwd0 = composite_tiles_bwd.launches
+            loss, info, wall, phase_ms = timed_train_step(net, ds, fids, gen)
+            bad = {k: v for k, v in info.items() if not math.isfinite(v)}
+            if bad:
+                raise AssertionError(f"non-finite training outputs: {bad}")
+            if composite_tiles_bwd.launches <= bwd0:
+                raise AssertionError("the training step did not launch composite_tiles_bwd")
+            if info["tube_rayConv"] < 1:
+                raise AssertionError("no ray converged")
+            log(f"[10] {'start-up ' if step == 0 else ''}train step {step} frames "
+                f"{list(map(int, fids))} wall {wall:.3f} s phases_ms "
+                f"{json.dumps({k: round(v, 3) for k, v in phase_ms.items()})} loss {loss:.6f} "
+                f"info {json.dumps({k: round(v, 6) for k, v in info.items()})}")
+            if step > 0:
+                steady.append((wall, phase_ms))
+    torch.cuda.synchronize()
+    launches = {"mesh_tiles": mesh_tiles.launches, "composite_tiles": composite_tiles.launches,
+                "composite_tiles_bwd": composite_tiles_bwd.launches}
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    mean = {k: float(np.mean([p[k] for _, p in steady])) for k in steady[0][1]}
+    log(f"[10] steady state over steps 1-{len(steady)}: wall mean "
+        f"{np.mean([w for w, _ in steady]):.4f} s (min {min(w for w, _ in steady):.4f}, max "
+        f"{max(w for w, _ in steady):.4f}) phases_ms mean "
+        f"{json.dumps({k: round(v, 3) for k, v in mean.items()})} peak device memory "
+        f"{peak:.3f} GiB launches {json.dumps(launches)}")
+    if min(launches.values()) < 1:
+        raise AssertionError(f"a kernel of the training path never launched: {launches}")
+    after = net.global_leaves()
+    if not all(bool(torch.isfinite(v).all()) for v in after.values()):
+        raise AssertionError("non-finite parameters after training")
+    moved = {k: (after[k].detach() - before[k]).abs().max().item() for k in before}
+    must_move = ("garment_sdfs.", "translator.", "render.", "scene.poses", "scene.trans",
+                 "scene.conds.deformer", "scene.camera.focal_length",
+                 "scene.camera.princeple_points", "scene.camera.world2cam_coord_trans")
+    still = [k for k in moved if k.startswith(must_move) and moved[k] == 0.0]
+    frozen = {k: moved[k] for k in ("scene.shape", "scene.camera.cam2world_coord_quat")}
+    groups = {g: max(v for k, v in moved.items() if k.startswith(g)) for g in must_move}
+    log(f"[10] largest change per group {json.dumps({k: float(f'{v:.3e}') for k, v in groups.items()})} "
+        f"frozen {json.dumps(frozen)}")
+    if any(groups[g] == 0.0 for g in must_move) or any(frozen.values()):
+        raise AssertionError(f"trained leaves unchanged or frozen leaves moved: "
+                             f"{[g for g in must_move if groups[g] == 0.0]} {frozen}")
+    if still:
+        log(f"[10] leaves with no change (no gradient reached them): {still}")
+    return launches
+
+
+def branch_backward(net, ds, fids, dev) -> None:
+    """Phase 11: the ② mask branch of a training batch, forward and
+    backward, with the kernels and with the plain versions: the same loss,
+    and vertex and translator gradients within 1e-4 of the largest entry
+    (K2/K3 against their plain versions, and the gradient scatters'
+    atomics, sum in other orders)."""
+    import numpy as np
+    import torch
+
+    from recmv_tpu_torch.ops.composite import composite_tiles, composite_tiles_plain
+    from recmv_tpu_torch.ops.mesh_raster import _mesh_tiles_torch, mesh_tiles
+
+    fids_t = torch.as_tensor(np.asarray(fids) + ds.start_idx, device=dev)
+    dev_b = net.device_batch(ds.get_batch(fids))
+    gt = [dev_b[k] for k in net._garment_mask_keys()]
+    counts = torch.as_tensor(net.mesh.garment_n, device=dev)
+    tr = list(net.params["translator"].parameters())
+    runs = []
+    for comp, mesh in ((composite_tiles, mesh_tiles), (composite_tiles_plain, _mesh_tiles_torch)):
+        vs = [v.detach().requires_grad_(True) for v in net.mesh.garment_vs]
+        with rasterizer_kernels(comp, mesh):
+            loss = net.pc_branch_loss(vs, fids_t, gt, RATIO, counts,
+                                      body_mask=dev_b.get("body"))[0]
+            grads = torch.autograd.grad(loss, vs + tr)
+        runs.append((loss.item(), grads))
+    torch.cuda.synchronize()
+    (l_k, g_k), (l_p, g_p) = runs
+    errs = [((a - b).abs().max().item(), b.abs().max().item()) for a, b in zip(g_k, g_p)]
+    worst = max(e / max(m, 1e-30) for e, m in errs)
+    log(f"[11] mask branch forward + backward with plain versions: loss {l_k:.6f} vs {l_p:.6f}, "
+        f"vertex grad max abs err {errs[0][0]:.3e} (max {errs[0][1]:.3e}), translator grads worst "
+        f"relative err {worst:.3e}")
+    if abs(l_k - l_p) > 1e-5 or worst > 1e-4 or errs[0][1] <= 0.0:
+        raise AssertionError("the mask branch's gradients differ between kernels and plain versions")
+
+
 def main() -> int:
     import torch
 
@@ -274,10 +470,11 @@ def main() -> int:
     log(f"[1] built kernels and host marching cubes in {time.time() - t0:.1f} s")
 
     check_kernels(dev)
+    check_backward_kernel(dev)
     ds, sampler, net = build_smoke_net(dev, tempfile.mkdtemp(prefix="recmv_chip_smoke_"))
 
     batches = []
-    while len(batches) < 3:
+    while len(batches) < 3 + TRAIN_STEPS:
         batches.extend(list(sampler))
     gen = torch.Generator(device=dev).manual_seed(0)
     mesh_tiles.launches = 0
@@ -337,12 +534,22 @@ def main() -> int:
     kres = {"mesh_tiles": compare_mesh_tiles("8", main_args["mesh_tiles"], min_cover=0.01),
             "composite_tiles": compare_composite_tiles("8", main_args["composite_tiles"])}
 
+    # phases 10-12: training
+    train_args = {}
+    launches = train(net, ds, batches[3:], gen, train_args)
+    branch_backward(net, ds, batches[-1], dev)
+    fwd = train_args["composite_tiles"]
+    kres["composite_tiles_bwd"] = compare_composite_bwd(
+        "12", fwd + (train_args["composite_tiles.grad"].contiguous(), fwd[3].requires_grad))
+
     sources = {"mesh_tiles": ("recmv_tpu_torch/csrc/mesh_raster.cu",
                               "recmv_tpu/ops/pallas_raster.py:31"),
                "composite_tiles": ("recmv_tpu_torch/csrc/composite_fwd.cu",
-                                   "recmv_tpu/ops/pallas_composite.py:49")}
+                                   "recmv_tpu/ops/pallas_composite.py:49"),
+               "composite_tiles_bwd": ("recmv_tpu_torch/csrc/composite_bwd.cu",
+                                       "recmv_tpu/ops/pallas_composite.py:88")}
     kernels = [dict(name=n, route="cuda", source=sources[n][0], replaces=sources[n][1],
-                    launches=launches[n], **kres[n]) for n in ("mesh_tiles", "composite_tiles")]
+                    launches=launches[n], **kres[n]) for n in sources]
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

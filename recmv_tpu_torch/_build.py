@@ -26,7 +26,7 @@ import tempfile
 _PKG = osp.dirname(osp.abspath(__file__))
 BUILD_DIR = osp.join(_PKG, "_build")
 CSRC = osp.join(_PKG, "csrc")
-KERNEL_SOURCES = ("mesh_raster.cu", "composite_fwd.cu")
+KERNEL_SOURCES = ("mesh_raster.cu", "composite_fwd.cu", "composite_bwd.cu")
 MESHOPS_SRC = osp.join(osp.dirname(_PKG), "recmv_tpu", "native", "meshops.cpp")
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -78,6 +78,11 @@ def kernels() -> ctypes.CDLL:
         lib.mesh_tiles_launch.argtypes = [p, p, p, p, p, p, i, i, i, i, i, p]
         lib.composite_fwd_launch.restype = i
         lib.composite_fwd_launch.argtypes = [p, p, p, p, p, p, f, i, i, i, i, i, i, p]
+        lib.composite_bwd_scratch.restype = ctypes.c_long
+        lib.composite_bwd_scratch.argtypes = [i, i, i, i, i, i]
+        lib.composite_bwd_launch.restype = i
+        lib.composite_bwd_launch.argtypes = [p, p, p, p, p, p, p, p, p, p, f,
+                                             i, i, i, i, i, i, i, p]
         _LIBS["kernels"] = lib
     return _LIBS["kernels"]
 

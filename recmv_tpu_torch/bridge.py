@@ -10,7 +10,11 @@ any object or dict with the ``SkinnerParams`` fields.
 - ``sdf``, ``garment_sdfs``, ``translator``, ``render``: loaded into the
   port's modules in place; exported back as JAX-layout dicts.
 - ``skinner``: ``SkinnerParams`` fields, unchanged layout.
-- the scene tree (poses, trans, shape, conds, camera): dicts of tensors.
+- the scene tree (poses, trans, shape, conds, camera): dicts of tensors;
+  ``load_scene`` copies a JAX tree into a network's scene leaves in place.
+- the garment mesh buffers of a remesh era: ``load_mesh`` gives them to a
+  network (with a fresh vertex optimizer), ``mesh_to_numpy`` takes them
+  back.
 """
 
 from __future__ import annotations
@@ -101,3 +105,32 @@ def scene_from_jax(scene: dict, device=None) -> dict:
 
 def scene_to_numpy(scene: dict) -> dict:
     return _map(scene, lambda t: t.detach().cpu().numpy())
+
+
+def load_scene(scene: dict, tree: dict) -> None:
+    """Copy a JAX scene tree into the port's scene tensors in place (the
+    optimizer keeps holding the same leaves)."""
+    with torch.no_grad():
+        for k, v in tree.items():
+            if isinstance(v, dict):
+                load_scene(scene[k], v)
+            else:
+                scene[k].copy_(torch.tensor(np.asarray(v, np.float32)))
+
+
+def load_mesh(net, garment_vs, garment_fs, garment_n, garment_fn) -> None:
+    """Install the JAX package's garment mesh buffers (padded vertex and
+    face arrays, live counts) in a port network whose mesh exists."""
+    net.mesh.garment_vs = [torch.tensor(np.asarray(v, np.float32), device=net.device)
+                           for v in garment_vs]
+    net.mesh.garment_fs = [torch.tensor(np.asarray(f, np.int64), device=net.device)
+                           for f in garment_fs]
+    net.mesh.garment_n = [int(n) for n in garment_n]
+    net.mesh.garment_fn = [int(n) for n in garment_fn]
+    net.reset_vertex_optimizer()
+
+
+def mesh_to_numpy(net) -> tuple:
+    """(vertex buffers, face buffers) of a port network as numpy lists."""
+    return ([v.detach().cpu().numpy() for v in net.mesh.garment_vs],
+            [f.cpu().numpy() for f in net.mesh.garment_fs])

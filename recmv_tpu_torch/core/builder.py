@@ -105,6 +105,7 @@ def build_opt_net(conf, dataset, save_root: str, resolutions=None,
         raster_cap_mesh=_cap("raster_cap_mesh", 512),
         raster_cap_points=_cap("raster_cap_points", 768),
         solver_times=_cap("solver_times", 20),
+        surface_sample=_cap("surface_sample", 4096),
         seed_downscale=_cap("seed_downscale", 2),
         mask_render_downscale=_cap("mask_render_downscale",
                                    2 if min(image_size) >= 720 else 1),
@@ -123,12 +124,17 @@ class _MergedConf:
         self.full = full
         self.loss = loss
 
-    def get_float(self, path, default=None):
+    def _get(self, kind: str, path, default):
         src = self.full if path.startswith("train") else self.loss
-        if path in src:
-            return src.get_float(path)
-        if path in self.full:
-            return self.full.get_float(path)
+        for tree in (src, self.full):
+            if path in tree:
+                return getattr(tree, f"get_{kind}")(path)
         if default is not None:
             return default
         raise KeyError(path)
+
+    def get_float(self, path, default=None):
+        return self._get("float", path, default)
+
+    def get_bool(self, path, default=None):
+        return self._get("bool", path, default)

@@ -1,16 +1,20 @@
-"""The per-scene garment network, forward of the training step
-(counterpart of ``recmv_tpu/core/network.py``).
+"""The per-scene garment network and its training step (counterpart of
+``recmv_tpu/core/network.py``).
 
 Ported: ``TrainConfig``, ``MeshState`` and, on ``GarmentOptimNetwork``,
 the remesh (``marching_cube_update``: seg3d pyramid + host marching cubes
 + the capacity trim), the ② mask branch (``pc_branch_loss``), ray seeding
-(``find_and_sample_rays``), the surface solve (``solve_surface_points``)
-and the IDR colour block of ③ ``main_loss`` (``idr_color_loss``).
-``forward_step`` chains them as the fused JAX ``step_fn`` does, without
-the optimizer updates.
+(``find_and_sample_rays``), the surface solve (``solve_surface_points``),
+③ ``main_loss`` with the implicit surface adjoint, the optimizers (Adam
+over the global parameters with the trainable mask and the lr scale, SGD
+with momentum over the mesh vertices) and ``train_step``, which does what
+the fused JAX ``step_fn`` does for a scene without feature curves.
+``forward_step`` runs the same phases without gradients or updates, with
+``idr_color_loss`` for the colour block.
 
-Not ported yet: the ① curve branch, the other ③ terms, the optimizers
-and ``train_step``, the initializations and checkpoints.
+Not ported yet: the ① curve branch and the curve-aware ③ term (which
+raises when its gate names a curve), the initializations, checkpoints
+and the large-pose stage.
 """
 
 from __future__ import annotations
@@ -23,17 +27,22 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..config.constants import CURVE_AWARE
+from ..data.dataset import trainable_mask
 from ..models import camera as cam_mod
-from ..models.deformer import cardinal_rays_from_jac, deformer_jacobian
+from ..models.deformer import (cardinal_rays_from_jac, deformed_normals_from_grads,
+                               deformer_jacobian)
 from ..models.garment_model import ModelStatics, make_deform_fn, scene_camera, split_deform_conds
 from ..models.render_net import render_net_apply
-from ..models.sdf import sdf_apply, sdf_gradient, sdf_value
+from ..models.sdf import sdf_apply, sdf_gradient, sdf_value, sdf_value_and_gradient
+from ..models.skinner import posed_skeleton
+from ..models.translator import translator_apply
 from ..native import marching_cubes_host
-from ..ops.math3d import gm_robust_error
+from ..ops.math3d import dct_null_space, gm_robust_error
 from ..ops.rasterizer import composite_points, find_surface_points, rasterize_mesh, screen_with_cam_z
 from ..ops.seg3d import Seg3dConfig, final_grid_spacing, seg3d_forward
 from . import losses as L
-from .surface_ps import optimize_surface_points
+from .surface_ps import attach_implicit_surface, optimize_surface_points, ray_constraint
 
 
 @dataclass
@@ -61,6 +70,7 @@ class TrainConfig:
     raster_cap_mesh: int = 512
     raster_cap_points: int = 768
     solver_times: int = 20
+    surface_sample: int = 4096
     seed_downscale: int = 2
     mask_render_downscale: int = 1
 
@@ -93,16 +103,72 @@ class GarmentOptimNetwork:
         self._remeshed_at = -1.0
         self.info = {}
         self.ang_thred = None
+        self.isfine = False
+        self.dct_null = torch.as_tensor(dct_null_space(10, 30), device=self.device)
         p = dataset.params
 
         def t(a):
-            return torch.as_tensor(np.asarray(a, np.float32), device=self.device)
+            return torch.as_tensor(np.asarray(a, np.float32), device=self.device).requires_grad_()
 
+        # the scene tree: leaves the global optimizer updates in place
         self.scene = {
             "poses": t(p.poses), "trans": t(p.trans), "shape": t(p.shape),
             "conds": {k: t(v) for k, v in p.conds.items()},
             "camera": {k: t(v) for k, v in p.camera.items()},
         }
+        lr = conf.get_float("train.learning_rate", 1e-4) if "train" in conf else 1e-4
+        self._init_global_opt(lr)
+        self.vert_opt = None
+        self._lr_scale = 1.0
+
+    # ------------------------------------------------------------------
+    # parameters and optimizers
+    # ------------------------------------------------------------------
+
+    def global_leaves(self) -> dict:
+        """The leaves the global Adam updates, by name: the parameters of
+        ``sdf``, ``garment_sdfs``, ``translator`` and ``render``
+        (``<net>.<parameter>``) and the scene tree (``scene.<key>`` or
+        ``scene.<group>.<key>``)."""
+        out = {}
+        for net in ("sdf", "garment_sdfs", "translator", "render"):
+            for name, prm in self.params[net].named_parameters():
+                out[f"{net}.{name}"] = prm
+        for k, v in self.scene.items():
+            if isinstance(v, dict):
+                out.update({f"scene.{k}.{kk}": vv for kk, vv in v.items()})
+            else:
+                out[f"scene.{k}"] = v
+        return out
+
+    def _init_global_opt(self, lr: float):
+        """Adam(lr, betas (0.9, 0.999), eps 1e-8), which equals
+        ``optax.adam(lr)`` as long as every leaf gets a gradient tensor at
+        every step (zeros, never None): optax moves a zero-gradient leaf by
+        its momentum and counts one step for all leaves. The trainable
+        mask follows ``trainable_mask``: the network leaves all train, the
+        scene leaves as the ``train.opt_*`` config says."""
+        mask = trainable_mask(self.full_conf, self.dataset.frame_num)
+        self._trainable = {}
+        for name in self.global_leaves():
+            parts = name.split(".")
+            if parts[0] != "scene":
+                self._trainable[name] = True
+                continue
+            m = mask[parts[1]]
+            self._trainable[name] = bool(m[parts[2]] if isinstance(m, dict) else m)
+        self.global_opt = torch.optim.Adam(list(self.global_leaves().values()), lr=lr,
+                                           betas=(0.9, 0.999), eps=1e-8)
+
+    def set_lr_scale(self, scale: float):
+        """MultiStepLR counterpart, as in the JAX package: the factor scales
+        the gradients fed to the fixed-lr Adam, which makes it a no-op up to
+        eps (Adam's update is invariant to a common gradient scale)."""
+        self._lr_scale = float(scale)
+
+    def on_phase_change(self):
+        """The JAX package drops its compiled phase functions here; the port
+        runs eagerly and has nothing to drop."""
 
     # ------------------------------------------------------------------
     # marching-cube remesh
@@ -175,6 +241,13 @@ class GarmentOptimNetwork:
             garment_vs=[p[0] for p in padded], garment_fs=[p[1] for p in padded],
             garment_n=[len(g[0]) for g in garments], garment_fn=[len(g[1]) for g in garments])
         self._remeshed_at = self.opt_times
+        self.reset_vertex_optimizer()
+
+    def reset_vertex_optimizer(self):
+        """SGD(0.05, momentum 0.9) over the mesh vertex buffers, which equals
+        ``optax.sgd(0.05, momentum=0.9)``; made anew, with no momentum, for
+        every new mesh."""
+        self.vert_opt = torch.optim.SGD(self.mesh.garment_vs, lr=0.05, momentum=0.9)
 
     # ------------------------------------------------------------------
     # shared sub-steps
@@ -414,6 +487,151 @@ class GarmentOptimNetwork:
         return total, info
 
     # ------------------------------------------------------------------
+    # ③ main loss
+    # ------------------------------------------------------------------
+
+    def main_draws(self, solved, garment_vs_t, generator=None) -> list:
+        """The random draws of ``main_loss``, per garment: ``vsel``
+        (surface_sample,) vertex indices into the buffer, ``local`` and
+        ``reg`` standard normals of the sample base's shape, ``glob``
+        uniforms in [−1.8, 1.8] (base rows // 6, 3)."""
+        dev = generator.device if generator is not None else self.device
+        out = []
+        for gi, vs in enumerate(garment_vs_t):
+            n_base = solved[gi]["pts"].shape[0] + self.cfg.surface_sample
+            out.append(dict(
+                vsel=torch.randint(0, vs.shape[0], (self.cfg.surface_sample,),
+                                   generator=generator, device=dev).to(self.device),
+                local=torch.randn(n_base, 3, generator=generator, device=dev).to(self.device),
+                glob=(torch.rand(n_base // 6, 3, generator=generator, device=dev) * 3.6
+                      - 1.8).to(self.device),
+                reg=torch.randn(n_base, 3, generator=generator, device=dev).to(self.device)))
+        return out
+
+    def _window_ids(self, fids, Nlen):
+        """Global frame indices of the DCT windows (sliding, clamped to the
+        video segment bounds)."""
+        self.dataset._frame_index_helper = (np.arange(self.dataset.frame_num)
+                                            + self.dataset.start_idx)
+        win, _ = self.dataset.get_batchframe_data("_frame_index_helper", fids, Nlen)
+        return win
+
+    def main_loss(self, solved, frame_ids, batch, garment_vs_t, counts, win_ids, ratio,
+                  draws):
+        """③: pc-sdf on the (updated, detached) mesh vertices; per garment
+        the eikonal term on local and global samples around the solved
+        points and vertices, the offset field's rigidity prior, and the
+        colour and normal losses on converged rays, reattached to the
+        parameters by the implicit surface adjoint; the DCT pose prior over
+        ``win_ids``. ``draws`` as ``main_draws`` makes them. Returns
+        (total, info)."""
+        scene = self.scene
+        cam = self._camera()
+        N = frame_ids.shape[0]
+        r = _ratio_dict(ratio)
+        conds = split_deform_conds(scene["conds"]["deformer"][frame_ids],
+                                   self.statics.garment_size)
+        poses = scene["poses"][frame_ids]
+        trans = scene["trans"][frame_ids]
+        info = {}
+        total = 0.0
+
+        # pc-sdf: anchor the updated explicit vertices to the implicit surface
+        pc_w = float(self.conf.get_float("pc_weight.weight", 60.0))
+        for gi, gname in enumerate(self.statics.garment_names):
+            vs = garment_vs_t[gi].detach()
+            valid = torch.arange(vs.shape[0], device=self.device) < counts[gi]
+            sdfv = sdf_value(self.params["garment_sdfs"][gi], vs, r["sdfRatio"])
+            s_loss = L.sdf_shrink_loss(sdfv, self.sdf_shrink, valid)
+            info[f"pc_{gname}_loss_sdf"] = s_loss
+            total = total + s_loss * pc_w
+
+        # the curve-aware hemline disc loss needs the feature curves
+        ca_w = float(self.conf.get_float("pc_weight.curve_aware_weight", 0.0))
+        if ca_w > 0 and ("upper_bottom" in self.dataset.fl_names
+                         or (self.dataset.garment_type in CURVE_AWARE and self.isfine)):
+            raise NotImplementedError("the curve-aware loss needs the feature curves, "
+                                      "which are not ported")
+
+        grad_w = float(self.conf.get_float("grad_weight", 1.0))
+        dr_w = float(self.conf.get_float("def_regu.weight", 0.0))
+        cw = float(self.conf.get_float("color_weight", 0.0))
+        nw = float(self.conf.get_float("normal_weight", 0.0))
+        origin = cam_mod.cam_pos(cam)
+        for gi, gname in enumerate(self.statics.garment_names):
+            sd = solved[gi]
+            dr = draws[gi]
+            gsdf = self.params["garment_sdfs"][gi]
+            d_cond = conds[gi + 1]
+            b_inds = sd["batch_inds"]
+            deform = make_deform_fn(self.params, d_cond, poses, trans, r["deformerRatio"],
+                                    batch_inds=b_inds)
+
+            # eikonal on local + global samples around the surface points
+            vs = garment_vs_t[gi]
+            vsel = dr["vsel"] % max(int(counts[gi]), 1)
+            base = torch.cat([sd["pts"], vs[vsel].detach()], 0)
+            nonmnfld = torch.cat([base + 0.01 * dr["local"], dr["glob"]], 0)
+            _, grads = sdf_value_and_gradient(gsdf, nonmnfld, r["sdfRatio"])
+            g_loss = L.eikonal_loss(grads)
+            info[f"{gname}_grad_loss"] = g_loss
+            total = total + g_loss * grad_w
+
+            # rigidity of the offset field (frame 0's latent)
+            if dr_w > 0:
+                reg_base = torch.cat([base, base + 0.01 * dr["reg"]], 0)
+                cond0 = d_cond[0]
+                Jo = deformer_jacobian(
+                    lambda p: translator_apply(self.params["translator"], p,
+                                               cond0.expand(p.shape[0], -1),
+                                               r["deformerRatio"])[0],
+                    reg_base, create_graph=True)
+                d_loss = L.def_regularization_loss(
+                    Jo, float(self.conf.get_float("def_regu.c", 0.5)))
+                info[f"def_{gname}_loss"] = d_loss
+                total = total + d_loss * dr_w
+
+            # colour + normal on converged rays, through the implicit adjoint
+            rays = sd["rays"]
+            TmpPs = attach_implicit_surface(
+                sd["pts"], lambda p: sdf_value(gsdf, p, r["sdfRatio"]),
+                lambda p: ray_constraint(deform(p), origin, rays))
+            _, feat = sdf_apply(gsdf, TmpPs, r["sdfRatio"])
+            nx = sdf_gradient(gsdf, TmpPs, r["sdfRatio"], create_graph=True)
+            nx = nx / torch.clamp(torch.linalg.norm(nx, dim=-1, keepdim=True), min=1e-9)
+            jac = deformer_jacobian(deform, TmpPs, create_graph=True)
+            crays, _ = cardinal_rays_from_jac(jac, rays)
+            conv = sd["conv"]
+            if cw > 0:
+                colors = render_net_apply(self.params["render"], TmpPs, nx, crays, feat,
+                                          ratio=r["renderRatio"])
+                gt_rgb = batch["img"][b_inds, sd["rows"], sd["cols"]]
+                c_loss = L.color_loss(colors, gt_rgb, b_inds, conv, N)
+                info[f"{gname}_color_loss"] = c_loss
+                total = total + cw * c_loss
+            if nw > 0 and "normal" in batch:
+                gtn = batch["normal"][b_inds, sd["rows"], sd["cols"]]
+                cnx, _ = deformed_normals_from_grads(jac.detach(), nx.detach())
+                n_loss = L.normal_pullback_loss(
+                    gtn, jac, nx, rays, cam.R, b_inds, conv, N,
+                    weighted=bool(self.conf.get_bool("weighted_normal", True)),
+                    deformed_normals=cnx)
+                info[f"{gname}_normal_loss"] = n_loss
+                total = total + nw * n_loss
+
+        # DCT temporal prior over the posed joints
+        dct_w = float(self.conf.get_float("dct_weight", 0.0))
+        if dct_w > 0 and win_ids is not None:
+            Nlen = self.dct_null.shape[1]
+            flat = win_ids.reshape(-1)
+            js = (posed_skeleton(self.params["skinner"], scene["poses"][flat])
+                  + scene["trans"][flat][:, None, :])
+            d_loss = L.dct_pose_loss(self.dct_null, js.reshape(N, Nlen, 24, 3))
+            info["dct_loss"] = d_loss
+            total = total + d_loss * dct_w
+        return total, info
+
+    # ------------------------------------------------------------------
     # the forward of one training step
     # ------------------------------------------------------------------
 
@@ -455,3 +673,101 @@ class GarmentOptimNetwork:
         self.info = {k: float(v) for k, v in info.items()}
         self.opt_times += 1.0
         return self.info, solved
+
+    # ------------------------------------------------------------------
+    # one training step
+    # ------------------------------------------------------------------
+
+    def _grads(self, loss, inputs):
+        """∂loss/∂inputs with zeros for inputs the loss does not reach."""
+        gs = torch.autograd.grad(loss, inputs, allow_unused=True)
+        return [torch.zeros_like(x) if g is None else g for g, x in zip(gs, inputs)]
+
+    def train_step(self, batch, frame_ids, ratio, generator=None, draws=None, timer=None):
+        """One optimization step, as the fused JAX ``step_fn`` without
+        feature curves: remesh when due; ② mask branch forward and backward
+        to the vertices and the global parameters; the vertices' SGD step;
+        ray seeding from the pre-update mesh, reusing ②'s (detached)
+        deformation; the surface solve; ③ ``main_loss`` forward and
+        backward on the updated vertices; one Adam step on the sum of the
+        two global gradients after the trainable mask and the lr scale.
+
+        ``batch``: numpy dict from ``dataset.get_batch``; ``frame_ids``
+        local indices. Random draws come from ``generator``; ``draws``
+        ({"uniforms": per garment seeding uniforms, "main": ``main_draws``'
+        list}) replaces them. ``timer``, if given, is called with each
+        phase name after the phase. Returns (main loss, info)."""
+        local = np.asarray(frame_ids)
+        fids = torch.as_tensor(local + self.dataset.start_idx, device=self.device)
+        mark = timer or (lambda name: None)
+        r = _ratio_dict(ratio)
+        N = len(local)
+        if self.mesh is None or (self.opt_times % self.cfg.remesh_intersect == 0
+                                 and self._remeshed_at != self.opt_times):
+            self.marching_cube_update(r)
+        mark("remesh")
+
+        dev = self.device_batch(batch)
+        gt_masks = [dev[k] for k in self._garment_mask_keys()]
+        counts = torch.as_tensor(self.mesh.garment_n, device=self.device)
+        leaves = self.global_leaves()
+        names, prms = list(leaves), list(leaves.values())
+        gvs = self.mesh.garment_vs
+        gvs_in = [v.detach().requires_grad_(True) for v in gvs]
+        pc_loss, (info_pc, _, def_vs) = self.pc_branch_loss(
+            gvs_in, fids, gt_masks, r, counts, body_mask=dev.get("body"))
+        g_all = self._grads(pc_loss, gvs_in + prms)
+        g_verts, g_pc = g_all[:len(gvs)], g_all[len(gvs):]
+        mark("pc")
+
+        pre_vs = [v.detach().clone() for v in gvs]
+        with torch.no_grad():
+            for v, g, n in zip(gvs, g_verts, self.mesh.garment_n):
+                v.grad = torch.where((torch.arange(v.shape[0], device=v.device) < n)[:, None],
+                                     g, 0.0)
+            self.vert_opt.step()
+            for v in gvs:
+                v.grad = None
+        mark("verts")
+
+        with torch.no_grad():
+            ray_data = self.find_and_sample_rays(
+                fids, gt_masks, r, pre_vs, self.mesh.garment_fs,
+                def_vs=[d.detach() for d in def_vs], generator=generator,
+                uniforms=None if draws is None else draws["uniforms"])
+        mark("rays")
+        with torch.no_grad():
+            solved = self.solve_surface_points(ray_data, fids, r)
+        mark("solve")
+
+        win_ids = None
+        if (float(self.conf.get_float("dct_weight", 0.0)) > 0
+                and self.dataset.frame_num > self.dct_null.shape[1]):
+            win_ids = torch.as_tensor(self._window_ids(local, self.dct_null.shape[1]),
+                                      device=self.device)
+        main_draws = (draws["main"] if draws is not None
+                      else self.main_draws(solved, gvs, generator))
+        m_loss, info_m = self.main_loss(solved, fids, dev, gvs, counts, win_ids, r, main_draws)
+        g_main = self._grads(m_loss, prms)
+        mark("main")
+
+        with torch.no_grad():
+            gnorm_pc = torch.sqrt(sum(torch.sum(g * g) for g in g_pc))
+            gnorm_main = torch.sqrt(sum(torch.sum(g * g) for g in g_main))
+            for name, p, a, b in zip(names, prms, g_pc, g_main):
+                g = a + b if self._trainable[name] else torch.zeros_like(p)
+                p.grad = g * self._lr_scale
+            self.global_opt.step()
+            self.global_opt.zero_grad(set_to_none=True)
+        mark("update")
+
+        info = {**info_pc, "pc_loss_total": pc_loss, **info_m, "m_loss_total": m_loss,
+                "gnorm_pc": gnorm_pc, "gnorm_main": gnorm_main}
+        budget = max(self.cfg.sample_pix // self.statics.garment_size, 1) * N
+        for gi, gname in enumerate(self.statics.garment_names):
+            info[f"{gname}_rayConv"] = solved[gi]["conv"].sum()
+            info[f"{gname}_rayBudget"] = budget
+        self.info = {k: float(v.detach()) if torch.is_tensor(v) else float(v)
+                     for k, v in info.items()}
+        self.opt_times += 1.0
+        return self.info["m_loss_total"], self.info

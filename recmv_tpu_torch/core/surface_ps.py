@@ -1,12 +1,14 @@
-"""Surface-point root finding (counterpart of
-``recmv_tpu/core/surface_ps.py``, forward part): per-ray projected
-Newton steps on canonical points p minimizing
-w1·|sdf(p)| + w2·sin∠(ray, D(p) − cam), with an "unfinished" mask in
-place of the reference's shrinking tensors.
+"""Surface-point root finding and its implicit adjoint (counterpart of
+``recmv_tpu/core/surface_ps.py``).
 
-The implicit adjoint that turns ∂L/∂p* into parameter gradients
-(``make_implicit_surface_adjoint``) is the identity in the forward pass;
-its ``torch.autograd.Function`` arrives with training.
+- ``optimize_surface_points``: per-ray projected Newton steps on canonical
+  points p minimizing w1·|sdf(p)| + w2·sin∠(ray, D(p) − cam), with an
+  "unfinished" mask in place of the reference's shrinking tensors.
+- ``attach_implicit_surface``: the solved points come from a solver that
+  is not differentiated, so ∂L/∂p* reaches the parameters θ through the
+  constraints F(p; θ) = [sdf(p); ray × (D(p) − cam)] = 0: with B = ∂F/∂p
+  (4×3), dL/dθ = −g (BᵀB)⁻¹Bᵀ ∂F/∂θ (the JAX
+  ``make_implicit_surface_adjoint``, a ``jax.custom_vjp``).
 """
 
 from __future__ import annotations
@@ -14,6 +16,8 @@ from __future__ import annotations
 import math
 
 import torch
+
+from ..ops.math3d import fast_3x3_inv
 
 MAX_STEP = 0.05      # canonical units per Newton step (trust region)
 DTHRESHOLD = 5e-5    # |sdf| bound of a converged point
@@ -66,3 +70,27 @@ def optimize_surface_points(sdf_fn, deform_fn, cam_origin, rays, init_pts, valid
         it += 1
     pts = torch.where(torch.isfinite(pts), pts, 0.0)
     return pts, valid & ~unfinished
+
+
+def ray_constraint(deformed_pts, cam_origin, rays):
+    """c = ray × (D(p) − cam): zero iff the deformed point lies on its ray."""
+    return torch.cross(rays, deformed_pts - cam_origin, dim=-1)
+
+
+def attach_implicit_surface(pts, sdf_fn, constraint_fn):
+    """Reattach solved points (M, 3) to the parameters.
+
+    sdf_fn (M, 3) → (M,) and constraint_fn (M, 3) → (M, 3) are closed over
+    the parameters (garment SDF; translator, latents, poses, translation,
+    camera) with their graphs. Returns TmpPs = p + M·(F − F.detach()) with
+    M = −(BᵀB)⁻¹Bᵀ computed without a graph and zeroed where BᵀB is
+    singular (|det| < 1e-4): its value is exactly p, its gradient with
+    respect to θ is −g (BᵀB)⁻¹Bᵀ ∂F/∂θ, and p itself gets none."""
+    with torch.enable_grad():
+        q = pts.detach().requires_grad_(True)
+        F = torch.cat([sdf_fn(q)[:, None], constraint_fn(q)], dim=-1)        # (M, 4)
+        rows = [torch.autograd.grad(F[:, i].sum(), q, retain_graph=True)[0] for i in range(4)]
+    B = torch.stack(rows, dim=1)                                               # (M, 4, 3)
+    inv, ok = fast_3x3_inv(B.transpose(1, 2) @ B)
+    Mt = torch.where(ok[:, None, None], -(inv @ B.transpose(1, 2)), 0.0)       # (M, 3, 4)
+    return q.detach() + torch.einsum("mik,mk->mi", Mt, F - F.detach())

@@ -77,11 +77,32 @@ def sdf_value(net: SdfNet, pts: torch.Tensor, ratio=None) -> torch.Tensor:
     return sdf_apply(net, pts, ratio)[0]
 
 
-def sdf_gradient(net: SdfNet, pts: torch.Tensor, ratio=None) -> torch.Tensor:
-    """∇ₓ sdf(x) for pts (..., 3): points are independent, so one backward
-    pass of Σ sdf gives every point's gradient. Works under no_grad; the
-    result carries no graph."""
+def _point_input(pts: torch.Tensor, create_graph: bool) -> torch.Tensor:
+    """The tensor to differentiate with respect to: ``pts`` itself where
+    its own graph must be kept, else a fresh leaf."""
+    if create_graph and pts.requires_grad:
+        return pts
+    return pts.detach().requires_grad_(True)
+
+
+def sdf_value_and_gradient(net: SdfNet, pts: torch.Tensor, ratio=None,
+                           create_graph: bool = True):
+    """(sdf(x), ∇ₓ sdf(x)) for pts (..., 3): points are independent, so
+    one backward pass of Σ sdf gives every point's gradient. With
+    ``create_graph`` (the default) both carry the graph to the network's
+    parameters and to ``pts``, as the JAX jvps do; without it neither
+    does (the solver's and the seeding's use). Works under no_grad."""
     with torch.enable_grad():
-        p = pts.detach().requires_grad_(True)
-        (g,) = torch.autograd.grad(sdf_value(net, p, ratio).sum(), p)
-    return g
+        p = _point_input(pts, create_graph)
+        vals = sdf_value(net, p, ratio)
+        (g,) = torch.autograd.grad(vals.sum(), p, create_graph=create_graph)
+    if not create_graph:
+        vals = vals.detach()
+    return vals, g
+
+
+def sdf_gradient(net: SdfNet, pts: torch.Tensor, ratio=None,
+                 create_graph: bool = False) -> torch.Tensor:
+    """∇ₓ sdf(x) for pts (..., 3); differentiable with ``create_graph``
+    (see ``sdf_value_and_gradient``), else it carries no graph."""
+    return sdf_value_and_gradient(net, pts, ratio, create_graph)[1]

@@ -1,11 +1,14 @@
 """Trilinear volume sampling and the volume helpers of the seg3d pyramid
 (counterpart of ``recmv_tpu/ops/grid_sample.py``).
 
-``grid_sample_3d`` keeps the JAX semantics on the main path — locations
-in [-1, 1] ordered (x, y, z) over the (W, H, D) axes, zero padding,
-align_corners=False — which are exactly those of ``F.grid_sample`` with
-``padding_mode="zeros"``, so that operator serves (first-order gradients
-are all the ported slice takes through it).
+``grid_sample_3d`` keeps the JAX semantics — locations in [-1, 1] ordered
+(x, y, z) over the (W, H, D) axes, zero padding, align_corners=False —
+and its arithmetic: eight corner gathers and a trilinear lerp in plain
+tensor ops, on every device. The skinner samples its weight field inside
+the deformer, whose Jacobian the training step differentiates again, and
+``F.grid_sample`` has no double backward with respect to the grid
+(torch 2.11+cu128: "derivative for aten::grid_sampler_3d_backward is not
+implemented"); the lerp form has every order of derivative.
 """
 
 from __future__ import annotations
@@ -16,10 +19,27 @@ import torch.nn.functional as F
 
 def grid_sample_3d(vol: torch.Tensor, pts: torch.Tensor) -> torch.Tensor:
     """vol (C, D, H, W), pts (N, 3) in [-1, 1] → (N, C)."""
-    N = pts.shape[0]
-    out = F.grid_sample(vol[None], pts.reshape(1, N, 1, 1, 3), mode="bilinear",
-                        padding_mode="zeros", align_corners=False)
-    return out.reshape(vol.shape[0], N).transpose(0, 1)
+    C, D, H, W = vol.shape
+    x = ((pts[:, 0] + 1.0) * W - 1.0) / 2.0
+    y = ((pts[:, 1] + 1.0) * H - 1.0) / 2.0
+    z = ((pts[:, 2] + 1.0) * D - 1.0) / 2.0
+    x0, y0, z0 = (torch.floor(c).detach() for c in (x, y, z))
+    wx1, wy1, wz1 = x - x0, y - y0, z - z0
+    wx0, wy0, wz0 = 1.0 - wx1, 1.0 - wy1, 1.0 - wz1
+    xi, yi, zi = (c.to(torch.int64) for c in (x0, y0, z0))
+    flat = vol.reshape(C, -1)
+    out = None
+    for dz, wz in ((0, wz0), (1, wz1)):
+        for dy, wy in ((0, wy0), (1, wy1)):
+            for dx, wx in ((0, wx0), (1, wx1)):
+                xc, yc, zc = xi + dx, yi + dy, zi + dz
+                valid = (xc >= 0) & (xc < W) & (yc >= 0) & (yc < H) & (zc >= 0) & (zc < D)
+                idx = ((zc.clamp(0, D - 1) * H + yc.clamp(0, H - 1)) * W
+                       + xc.clamp(0, W - 1))
+                vals = torch.where(valid[None, :], flat[:, idx], 0.0)
+                term = vals * (wz * wy * wx)[None]
+                out = term if out is None else out + term
+    return out.transpose(0, 1)
 
 
 def upsample2x(vol: torch.Tensor) -> torch.Tensor:

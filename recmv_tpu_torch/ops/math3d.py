@@ -106,3 +106,9 @@ def dct_basis(k: int, n: int) -> np.ndarray:
 def dct_space(k: int, n: int) -> np.ndarray:
     """Rows 0..k-1 of the DCT basis."""
     return np.stack([dct_basis(i, n) for i in range(0, k)])
+
+
+def dct_null_space(k: int, n: int) -> np.ndarray:
+    """Rows k..n-1 of the DCT basis: the high-frequency null space of the
+    temporal pose prior."""
+    return np.stack([dct_basis(i, n) for i in range(k, n)])

@@ -122,11 +122,15 @@ def composite_tile_inputs(pts: torch.Tensor, radius: float, features: torch.Tens
     ty0 = torch.floor((y - r_pix) / tile).to(torch.int64)
     ty1 = torch.floor((y + r_pix) / tile).to(torch.int64)
     pidx, pvalid, cnt = _bin_sorted(tx0, tx1, ty0, ty1, z, valid, Ht, Wt, min(cap, P))
-    packed = torch.cat([pts[..., :2], features.expand(B, P, C)], dim=-1)   # (B, P, 2 + C)
-    g = torch.gather(packed, 1, pidx.reshape(B, -1, 1).expand(-1, -1, 2 + C))
-    g = g.reshape(B, Ht * Wt, -1, 2 + C)
+    # coordinates and features are gathered apart, so constant features
+    # (the mask branch's section one-hots) never require grad and the
+    # backward skips their sums
+    flat = pidx.reshape(B, -1)
+    g = torch.gather(pts[..., :2], 1, flat[..., None].expand(-1, -1, 2))
+    g = g.reshape(B, Ht * Wt, -1, 2)
     va = pvalid.to(torch.float32)
-    ft = (g[..., 2:] * va[..., None]).transpose(2, 3).contiguous()          # (B, T, C, cap)
+    ft = features.expand(B, P, C).gather(1, flat[..., None].expand(-1, -1, C))
+    ft = (ft.reshape(B, Ht * Wt, -1, C) * va[..., None]).transpose(2, 3).contiguous()
     return (g[..., 0].contiguous(), g[..., 1].contiguous(), va, ft,
             ndc_scale ** 2 / (radius * radius), cnt, Wt)
 
@@ -138,8 +142,9 @@ def composite_points(pts: torch.Tensor, radius: float, features: torch.Tensor,
     pts (B, P, 3) screen-space (points with z ≤ 0 are skipped), radius in
     NDC units, features (P, C) → (B, H, W, C): per pixel
     Σ_k w_k f_k Π_{j<k}(1 − w_j + 1e-10), w_k = clip(1 − d²/r², 0, 1),
-    over every point of its tile's (≤ cap, nearest-kept) list. Forward
-    only."""
+    over every point of its tile's (≤ cap, nearest-kept) list.
+    Differentiable in the screen coordinates and, where they require
+    grad, the features (``composite_tiles``: K2 forward, K3 backward)."""
     H, W = image_size
     *args, Wt = composite_tile_inputs(pts, radius, features, image_size, tile, cap)
     out = composite_tiles(*args, Wt, tile)                                  # (B, T, C, tile²)

@@ -9,7 +9,9 @@ Tests marked ``gpu`` need a CUDA device and skip without one. Kernel
 tolerances: mesh face ids equal except ≤ 1e-4 of pixels (ties on shared
 edges), zbuf within 1e-5 where they agree; composite within 1e-5
 absolute (float32, the plain version's cumulative product and sum run in
-another order).
+another order); the composite's backward within 1e-5 of the largest
+plain entry (sums over pixels and candidates in another order), and the
+same bits on a second launch (no atomics).
 """
 
 import os
@@ -80,6 +82,65 @@ def test_composite_kernel_matches_plain(cuda):
     assert composite_tiles.launches == before + 1
     assert want.max().item() > 0.5
     torch.testing.assert_close(got, want, atol=1e-5, rtol=0)
+
+
+def _composite_case(rng, dev, B, T, cap, C, tile, Wt):
+    span = Wt * tile
+    cx = torch.as_tensor(rng.rand(B, T, cap) * span, dtype=torch.float32, device=dev)
+    cy = torch.as_tensor(rng.rand(B, T, cap) * span, dtype=torch.float32, device=dev)
+    cnt = torch.as_tensor(rng.randint(0, cap + 1, (B, T)), dtype=torch.int32, device=dev)
+    cnt[0, 0] = cap
+    val = (torch.arange(cap, device=dev) < cnt[..., None]).to(torch.float32)
+    feat = torch.as_tensor(rng.rand(B, T, C, cap), dtype=torch.float32, device=dev)
+    g = torch.as_tensor(rng.randn(B, T, C, tile * tile), dtype=torch.float32, device=dev)
+    return cx, cy, val, feat, cnt, g
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("C,tile,need_dfeat,cap", [(1, 32, False, 1536), (2, 32, True, 600),
+                                                   (3, 16, True, 100), (2, 8, True, 70)])
+def test_composite_bwd_kernel_matches_plain(cuda, C, tile, need_dfeat, cap):
+    from recmv_tpu_torch.ops.composite import _composite_tiles_bwd_torch, composite_tiles_bwd
+
+    rng = np.random.RandomState(C + tile)
+    Wt = 4
+    cx, cy, val, feat, cnt, g = _composite_case(rng, cuda, 2, 12, cap, C, tile, Wt)
+    args = (cx, cy, val, feat, 1.0 / 40.0, cnt, Wt, tile, g, need_dfeat)
+    before = composite_tiles_bwd.launches
+    got = composite_tiles_bwd(*args)
+    again = composite_tiles_bwd(*args)
+    want = _composite_tiles_bwd_torch(*args)
+    torch.cuda.synchronize()
+    assert composite_tiles_bwd.launches == before + 2
+    assert (got[2] is None) == (not need_dfeat)
+    for a, b, c in zip(got, want, again):
+        if b is None:
+            continue
+        assert torch.equal(a, c)
+        torch.testing.assert_close(a, b, atol=1e-5 * max(1.0, b.abs().max().item()), rtol=0)
+
+
+@pytest.mark.gpu
+def test_composite_tiles_backward_on_cuda(cuda):
+    """The K2 path keeps the graph on the card: the output requires grad and
+    its backward launches K3, with the plain versions' gradients."""
+    from recmv_tpu_torch.ops.composite import (composite_tiles, composite_tiles_bwd,
+                                               composite_tiles_plain)
+
+    rng = np.random.RandomState(3)
+    cx, cy, val, feat, cnt, g = _composite_case(rng, cuda, 2, 16, 300, 2, 32, 4)
+    grads = []
+    for fn in (composite_tiles, composite_tiles_plain):
+        x, y, f = (a.clone().requires_grad_(True) for a in (cx, cy, feat))
+        before = composite_tiles_bwd.launches
+        out = fn(x, y, val, f, 1.0 / 40.0, cnt, 4, 32)
+        assert out.requires_grad
+        out.backward(g)
+        grads.append((x.grad, y.grad, f.grad, composite_tiles_bwd.launches - before))
+    torch.cuda.synchronize()
+    assert grads[0][3] == 1 and grads[1][3] == 0
+    for a, b in zip(grads[0][:3], grads[1][:3]):
+        torch.testing.assert_close(a, b, atol=1e-5 * max(1.0, b.abs().max().item()), rtol=0)
 
 
 @pytest.mark.gpu
