@@ -4,10 +4,13 @@
 
 Phases, one printed line each (or more):
 1. build the CUDA kernels (nvcc, sm_90a) and the host marching cubes (g++)
-   from the sources in the checkout;
+   from the sources in the checkout, and print ptxas's registers, shared
+   memory and spills for each kernel;
 2. each kernel against its plain PyTorch version on the card, at the
    main path's shapes (1080², tile 32, cap 512 for the mesh z-buffer,
-   cap 768 and one channel for the point composite), with both times;
+   cap 768 and one channel for the point composite), with both times,
+   the work behind the kernel's bound (Σcnt, and the covered or live
+   (pixel, candidate) pairs) and the bound;
 3. generate a synthetic-tube scene on the card: 32 frames at 1080² (more
    than the DCT prior's window of 30), skinning field (129, 225, 65);
 4. build the network on it at the flagship widths (SDF 8×512 + 256
@@ -21,10 +24,12 @@ Phases, one printed line each (or more):
    the plain versions in place of the kernels: same masks, same seeds;
 8. each kernel against its plain version on the very arguments the main
    path gave it in phase 7 (3 frames at 540², tile 32; cap 512 for the
-   seeding z-buffer, cap 1536 for the mask composite), with both times;
+   seeding z-buffer, cap 1536 for the mask composite), with both times,
+   the work and the bound as in phase 2;
 9. the composite's backward (K3) against its plain version on the 1080²
    sphere of phase 2 with a seeded upstream gradient, cap 768, one and
-   two channels, with and without the feature gradient;
+   two channels, with and without the feature gradient, with the work
+   and the bound;
 10. six training steps (``train_step``) over batches of 3 frames, the
     first one remeshing, with per-phase CUDA-event times (remesh, ② pc
     forward + backward, vertex update, rays, solve, ③ main forward +
@@ -37,11 +42,16 @@ Phases, one printed line each (or more):
     translator gradients;
 12. K3 against its plain version on the arguments the training step gave
     it (3 frames at 540², cap 1536, one channel, no feature gradient),
-    with both times.
+    with both times, the work and the bound.
 
-Then a JSON line with each kernel's record (launches from the training
-run of phase 10, error and times from phases 8 and 12), the card's name
-and power limit, and last ``{"ok": true, "device": {...}}``. Any failure
+A kernel's bound is the larger of the bytes it must move (each input
+read once: the listed candidates, the counts, the upstream gradient;
+each output written once) over 3.35 TB/s and the operations the live
+pairs need over 67 TFLOP/s (H100 SXM float32, published peaks). Then a
+JSON line with each kernel's record (launches from the training run of
+phase 10; error, times and bound from phases 8 and 12; no PyTorch call
+computes these functions, so ``library_ms`` is null), the card's name and
+power limit, and last ``{"ok": true, "device": {...}}``. Any failure
 raises and the exit code is not 0. Without CUDA it exits with 2 before
 any work.
 """
@@ -63,6 +73,8 @@ IMAGE = 1080
 FRAMES = 32
 TRAIN_STEPS = 6
 SKINNER_RES = (129, 225, 65)
+HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory, published peak
+FP32_FLOP_PER_S = 67e12        # H100 SXM float32 outside the tensor cores, published peak
 
 
 def log(msg: str) -> None:
@@ -89,6 +101,77 @@ def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def ptxas_summary(log: str) -> list:
+    """One line per kernel from ptxas's verbose output: registers, stack,
+    spills and shared memory of each compiled entry function."""
+    import re
+
+    lines, name, frame = [], None, ""
+    for ln in log.splitlines():
+        if "Compiling entry function" in ln:
+            name = ln.split("'")[1] if "'" in ln else ln.split()[-1]
+            m = re.search(r"\d+([a-z_]+_kernel)(I\w*?EE)?", name)
+            if m:
+                args = re.findall(r"L[a-z](\d+)E", m.group(2) or "")
+                name = m.group(1) + (f"<{','.join(args)}>" if args else "")
+        elif "spill stores" in ln:
+            frame = ln.strip()
+        elif "Used" in ln and "registers" in ln and name:
+            lines.append(f"{name}: {ln.split(':', 1)[1].strip()}; {frame}")
+            name, frame = None, ""
+    return lines
+
+
+def bound(nbytes: float, flops: float) -> dict:
+    """The least time the card could take: bytes over the memory rate or
+    operations over the float32 rate, whichever is larger."""
+    tb, to = nbytes / HBM_BYTES_PER_S * 1e3, flops / FP32_FLOP_PER_S * 1e3
+    return dict(bound_ms=max(tb, to), bound_by="bytes" if tb >= to else "operations")
+
+
+def composite_work(args) -> tuple:
+    """(Σcnt, live pairs) of composite_tiles' arguments: the candidates the
+    kernels read and the (pixel, candidate) pairs with w > 0."""
+    import torch
+
+    from recmv_tpu_torch.ops.composite import _chunks, _weights
+    from recmv_tpu_torch.ops.mesh_raster import tile_pixels
+
+    cx, cy, val, _, inv_r2, cnt, Wt, tile = args[:8]
+    B, T, cap = cx.shape
+    px, py = tile_pixels(T, Wt, tile, cx.device)
+    live = 0
+    with torch.no_grad():
+        for t0, t1 in _chunks(B, T, cap, tile * tile):
+            live += int((_weights(cx, cy, val, inv_r2, cnt, px, py, t0, t1)[1] > 0).sum())
+    return int(cnt.sum()), live
+
+
+def mesh_work(args) -> tuple:
+    """(Σcnt, covered pairs) of mesh_tiles' arguments: the candidate faces
+    the kernel reads and the (pixel, face) pairs inside the face."""
+    import torch
+
+    from recmv_tpu_torch.ops.composite import _chunks
+    from recmv_tpu_torch.ops.mesh_raster import tile_pixels
+
+    prm, _, cnt, Wt, tile = args
+    B, T, _, cap = prm.shape
+    px, py = tile_pixels(T, Wt, tile, prm.device)
+    k = torch.arange(cap, device=prm.device)
+    covered = 0
+    with torch.no_grad():
+        for t0, t1 in _chunks(B, T, cap, tile * tile):
+            P = prm[:, t0:t1, :, :, None]
+            x, y = px[None, t0:t1, None, :], py[None, t0:t1, None, :]
+            inside = (k < cnt[:, t0:t1, None])[..., None]
+            for e in range(3):
+                inside = inside & (P[:, :, 3 * e] * y + P[:, :, 3 * e + 1] * x
+                                   + P[:, :, 3 * e + 2] > 0.0)
+            covered += int(inside.sum())
+    return int(cnt.sum()), covered
 
 
 def sphere_screen_mesh(dev):
@@ -130,13 +213,20 @@ def compare_mesh_tiles(tag: str, args, min_cover: float) -> dict:
     b_err = (got[2] - want[2]).movedim(2, -1)[same].abs().max().item()
     covered = (want[1] >= 0).float().mean().item()
     ms, plain_ms = cuda_ms(lambda: mesh_tiles(*args), 20), cuda_ms(lambda: _mesh_tiles_torch(*args), 3)
-    log(f"[{tag}] mesh_tiles: frames {args[0].shape[0]} tiles {args[0].shape[1]} cap "
-        f"{args[0].shape[3]} max count {int(args[2].max())} covered {covered:.4f} face-id "
-        f"mismatch {mismatch:.2e} zbuf err {z_err:.3e} bary err {b_err:.3e} kernel {ms:.3f} ms "
-        f"plain {plain_ms:.3f} ms")
+    # bytes: the listed faces' 12 coefficients and id, the counts, zbuf,
+    # face and 3 barycentrics per pixel; operations: 22 per covered pair
+    # (3 edge functions, inverse depths, reciprocal, barycentrics, compare)
+    sum_cnt, pairs = mesh_work(args)
+    B, T = args[2].shape
+    npix = args[4] ** 2
+    b = bound(4.0 * (13 * sum_cnt + B * T + 5 * B * T * npix), 22.0 * pairs)
+    log(f"[{tag}] mesh_tiles: frames {B} tiles {T} cap {args[0].shape[3]} max count "
+        f"{int(args[2].max())} sum count {sum_cnt} covered pairs {pairs} covered {covered:.4f} "
+        f"face-id mismatch {mismatch:.2e} zbuf err {z_err:.3e} bary err {b_err:.3e} kernel "
+        f"{ms:.4f} ms plain {plain_ms:.3f} ms bound {b['bound_ms']:.5f} ms ({b['bound_by']})")
     if mismatch > 1e-4 or z_err > 1e-5 or b_err > 1e-5 or covered < min_cover:
         raise AssertionError("mesh_tiles kernel disagrees with its plain version")
-    return dict(max_abs_err=max(z_err, b_err), ms=ms, plain_ms=plain_ms)
+    return dict(max_abs_err=max(z_err, b_err), ms=ms, plain_ms=plain_ms, **b, library_ms=None)
 
 
 def compare_composite_tiles(tag: str, args) -> dict:
@@ -151,13 +241,19 @@ def compare_composite_tiles(tag: str, args) -> dict:
     err = (got - want).abs().max().item()
     ms, plain_ms = cuda_ms(lambda: composite_tiles(*args), 20), cuda_ms(
         lambda: _composite_tiles_torch(*args), 3)
-    log(f"[{tag}] composite_tiles: frames {args[0].shape[0]} tiles {args[0].shape[1]} cap "
-        f"{args[0].shape[2]} channels {args[3].shape[2]} max count {int(args[5].max())} "
-        f"coverage {want.mean().item():.4f} max abs err {err:.3e} kernel {ms:.3f} ms "
-        f"plain {plain_ms:.3f} ms")
+    # bytes: the listed candidates (cx, cy, val, feat[C]), the counts and
+    # the output; operations: 15 + 2C per live pair (weight, chain, sums)
+    sum_cnt, live = composite_work(args)
+    (B, T, cap), C = args[0].shape, args[3].shape[2]
+    b = bound(4.0 * ((3 + C) * sum_cnt + B * T + B * T * C * args[7] ** 2),
+              (15.0 + 2 * C) * live)
+    log(f"[{tag}] composite_tiles: frames {B} tiles {T} cap {cap} channels {C} max count "
+        f"{int(args[5].max())} sum count {sum_cnt} live pairs {live} coverage "
+        f"{want.mean().item():.4f} max abs err {err:.3e} kernel {ms:.4f} ms plain "
+        f"{plain_ms:.3f} ms bound {b['bound_ms']:.5f} ms ({b['bound_by']})")
     if err > 1e-5 or want.max().item() < 0.5:
         raise AssertionError("composite_tiles kernel disagrees with its plain version")
-    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms)
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, **b, library_ms=None)
 
 
 def check_kernels(dev) -> None:
@@ -193,13 +289,22 @@ def compare_composite_bwd(tag: str, args) -> dict:
         same = all(torch.equal(a, c) for a, _, c in pairs)
         ms, plain_ms = cuda_ms(lambda: composite_tiles_bwd(*args), 20), cuda_ms(
             lambda: _composite_tiles_bwd_torch(*args), 3)
-    log(f"[{tag}] composite_tiles_bwd: frames {args[0].shape[0]} tiles {args[0].shape[1]} cap "
-        f"{args[0].shape[2]} channels {args[3].shape[2]} dfeat {bool(args[9])} max count "
-        f"{int(args[5].max())} max |plain| {scale:.4e} max abs err {err:.3e} deterministic "
-        f"{same} kernel {ms:.3f} ms plain {plain_ms:.3f} ms")
+    # bytes: the listed candidates, the counts, the upstream gradient and
+    # the outputs (dcx, dcy and dfeat over the whole cap); operations per
+    # live pair: the forward chain (13), then 24 + 7C (+ 2C for dfeat) for
+    # the reverse step and the sums
+    sum_cnt, live = composite_work(args)
+    (B, T, cap), C, need = args[0].shape, args[3].shape[2], bool(args[9])
+    nv = 2 + (C if need else 0)
+    b = bound(4.0 * ((3 + C) * sum_cnt + B * T + B * T * C * args[7] ** 2 + B * T * cap * nv),
+              (37.0 + 7 * C + (2 * C if need else 0)) * live)
+    log(f"[{tag}] composite_tiles_bwd: frames {B} tiles {T} cap {cap} channels {C} dfeat "
+        f"{need} max count {int(args[5].max())} sum count {sum_cnt} live pairs {live} max "
+        f"|plain| {scale:.4e} max abs err {err:.3e} deterministic {same} kernel {ms:.4f} ms "
+        f"plain {plain_ms:.3f} ms bound {b['bound_ms']:.5f} ms ({b['bound_by']})")
     if err > 1e-5 * scale or not same or scale <= 0.0:
         raise AssertionError("composite_tiles_bwd kernel disagrees with its plain version")
-    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms)
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, **b, library_ms=None)
 
 
 def check_backward_kernel(dev) -> None:
@@ -468,6 +573,8 @@ def main() -> int:
     t0 = time.time()
     _build.build_all()
     log(f"[1] built kernels and host marching cubes in {time.time() - t0:.1f} s")
+    for line in ptxas_summary(_build.kernels_build_log()):
+        log(f"[1] ptxas {line}")
 
     check_kernels(dev)
     check_backward_kernel(dev)

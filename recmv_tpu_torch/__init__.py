@@ -12,7 +12,7 @@ IDR colour at the solved points. The two TPU kernels on that path are
 hand-written CUDA C++ for Hopper (``csrc/``), built with ``nvcc`` at first
 use and bound with ctypes (``_build.py``); each sits beside a plain
 PyTorch version of the same function, which the wrapper takes for CPU
-tensors only.
+tensors only. Entry points run on the card unless a device is named.
 
 Precision: float32 throughout. TF32 is switched off for matmuls and cuDNN
 below, so the MLPs run in full f32 (the JAX package ran them at its
@@ -25,3 +25,14 @@ __version__ = "0.1.0"
 
 _torch.backends.cuda.matmul.allow_tf32 = False
 _torch.backends.cudnn.allow_tf32 = False
+
+
+def resolve_device(device=None) -> _torch.device:
+    """``device`` as a ``torch.device``; when none is given, the CUDA card.
+    Raises when there is no card and the caller did not name a device: the
+    port runs on the CPU only when asked to."""
+    if device is not None:
+        return _torch.device(device)
+    if not _torch.cuda.is_available():
+        raise RuntimeError("no CUDA device; pass device='cpu' to run the port on the CPU")
+    return _torch.device("cuda")

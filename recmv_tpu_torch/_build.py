@@ -5,13 +5,18 @@ checkout, into ``recmv_tpu_torch/_build/`` (listed in ``.gitignore``).
   for ``sm_90a`` into one shared library with a plain C interface and
   loaded with ctypes. Each C entry point launches on the stream it is
   given and returns ``cudaGetLastError()``.
-- ``meshops()``: the host C++ marching cubes, compiled by ``g++`` from the
-  JAX package's ``recmv_tpu/native/meshops.cpp`` (the source is shared;
-  the library is the port's own, so the JAX package's directory is never
-  written).
+- ``meshops()``: the host C++ marching cubes, compiled by ``g++`` from
+  ``csrc/meshops.cpp``, the port's copy of
+  ``recmv_tpu/native/meshops.cpp``.
 
-A library's file name carries a hash of its sources and flags, so an edit
-to a source never loads a stale build.
+Every source compiled here lies under ``recmv_tpu_torch/csrc/``.
+
+A library's sources compile at the same time, one compiler process each,
+and are then linked. Its file name carries a hash of its sources and
+flags, so an edit to a source never loads a stale build. The compiler's
+output is kept
+beside the library as ``<library>.log`` (for the kernels, ptxas's
+registers, shared memory and spills per kernel: ``kernels_build_log()``).
 """
 
 from __future__ import annotations
@@ -20,6 +25,7 @@ import ctypes
 import hashlib
 import os
 import os.path as osp
+import shutil
 import subprocess
 import tempfile
 
@@ -27,11 +33,11 @@ _PKG = osp.dirname(osp.abspath(__file__))
 BUILD_DIR = osp.join(_PKG, "_build")
 CSRC = osp.join(_PKG, "csrc")
 KERNEL_SOURCES = ("mesh_raster.cu", "composite_fwd.cu", "composite_bwd.cu")
-MESHOPS_SRC = osp.join(osp.dirname(_PKG), "recmv_tpu", "native", "meshops.cpp")
+MESHOPS_SRC = osp.join(CSRC, "meshops.cpp")
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-fmad=false"]
-GXX_FLAGS = ["-O3", "-shared", "-fPIC", "-std=c++17"]
+              "-Xcompiler", "-fPIC", "-fmad=false", "-Xptxas", "-v"]
+GXX_FLAGS = ["-O3", "-fPIC", "-std=c++17"]
 
 _LIBS: dict = {}
 
@@ -43,8 +49,11 @@ def _nvcc() -> str:
 
 def _compile(tag: str, compiler: str, flags: list, sources: list) -> str:
     """Compile ``sources`` into ``_build/lib<tag>_<hash>.so`` unless that
-    file exists; returns its path. Writes to a temporary name first and
-    renames, so an interrupted build leaves no library behind."""
+    file exists; returns its path. Each source compiles to an object in
+    its own process, all started together, and the objects are then linked
+    with ``-shared``. Builds in a temporary directory and renames, so an
+    interrupted build leaves no library behind; the compiler's output goes
+    to ``<path>.log``."""
     h = hashlib.sha256(" ".join(flags).encode())
     for s in sources:
         with open(s, "rb") as f:
@@ -53,17 +62,26 @@ def _compile(tag: str, compiler: str, flags: list, sources: list) -> str:
     if osp.isfile(path):
         return path
     os.makedirs(BUILD_DIR, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
+    work = tempfile.mkdtemp(dir=BUILD_DIR)
     try:
-        proc = subprocess.run([compiler, *flags, *sources, "-o", tmp],
+        objs = [osp.join(work, f"{i}.o") for i in range(len(sources))]
+        procs = [subprocess.Popen([compiler, *flags, "-c", s, "-o", o], stdout=subprocess.PIPE,
+                                  stderr=subprocess.STDOUT, text=True)
+                 for s, o in zip(sources, objs)]
+        outs = [p.communicate()[0] for p in procs]
+        log = "".join(outs)
+        if any(p.returncode != 0 for p in procs):
+            raise RuntimeError(f"building {tag} failed:\n{log}")
+        lib = osp.join(work, "lib.so")
+        link = subprocess.run([compiler, *flags, "-shared", *objs, "-o", lib],
                               capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(f"building {tag} failed:\n{proc.stdout}\n{proc.stderr}")
-        os.replace(tmp, path)
+        if link.returncode != 0:
+            raise RuntimeError(f"linking {tag} failed:\n{link.stdout}\n{link.stderr}")
+        with open(path + ".log", "w") as f:
+            f.write(log + link.stdout + link.stderr)
+        os.replace(lib, path)
     finally:
-        if osp.exists(tmp):
-            os.remove(tmp)
+        shutil.rmtree(work, ignore_errors=True)
     return path
 
 
@@ -78,13 +96,22 @@ def kernels() -> ctypes.CDLL:
         lib.mesh_tiles_launch.argtypes = [p, p, p, p, p, p, i, i, i, i, i, p]
         lib.composite_fwd_launch.restype = i
         lib.composite_fwd_launch.argtypes = [p, p, p, p, p, p, f, i, i, i, i, i, i, p]
-        lib.composite_bwd_scratch.restype = ctypes.c_long
-        lib.composite_bwd_scratch.argtypes = [i, i, i, i, i, i]
         lib.composite_bwd_launch.restype = i
-        lib.composite_bwd_launch.argtypes = [p, p, p, p, p, p, p, p, p, p, f,
+        lib.composite_bwd_launch.argtypes = [p, p, p, p, p, p, p, p, p, f,
                                              i, i, i, i, i, i, i, p]
         _LIBS["kernels"] = lib
     return _LIBS["kernels"]
+
+
+def kernels_build_log() -> str:
+    """What the compiler printed when it built the kernel library (ptxas's
+    resource use per kernel; empty when the library was built without a
+    log); builds the library first if needed."""
+    log = kernels()._name + ".log"
+    if not osp.isfile(log):
+        return ""
+    with open(log) as f:
+        return f.read()
 
 
 def meshops() -> ctypes.CDLL:

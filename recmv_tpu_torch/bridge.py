@@ -24,6 +24,7 @@ from dataclasses import fields
 import numpy as np
 import torch
 
+from . import resolve_device
 from .models.skinner import SkinnerParams
 
 NETS = ("sdf", "translator", "render")
@@ -64,6 +65,7 @@ def export_mlp(module) -> dict:
 
 def skinner_from_jax(sk, device=None) -> SkinnerParams:
     get = (lambda k: sk[k]) if isinstance(sk, dict) else (lambda k: getattr(sk, k))
+    device = resolve_device(device)
     return SkinnerParams(**{f.name: torch.tensor(np.asarray(get(f.name), np.float32),
                                                     device=device)
                             for f in fields(SkinnerParams)})
@@ -99,7 +101,9 @@ def _map(tree, fn):
 
 
 def scene_from_jax(scene: dict, device=None) -> dict:
-    """JAX scene tree (poses, trans, shape, conds, camera) → tensors."""
+    """JAX scene tree (poses, trans, shape, conds, camera) → tensors on
+    ``device`` (the CUDA card when none is given)."""
+    device = resolve_device(device)
     return _map(scene, lambda a: torch.tensor(np.asarray(a, np.float32), device=device))
 
 

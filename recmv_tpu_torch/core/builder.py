@@ -15,6 +15,7 @@ import os.path as osp
 import numpy as np
 import torch
 
+from .. import resolve_device
 from ..config.constants import TEMPLATE_GARMENT
 from ..models.garment_model import init_model
 from ..models.skinner import SkinnerParams, bbox_size, initial_lbs_skinner
@@ -59,8 +60,9 @@ _SKIN_FIELDS = ("ws", "Js", "init_pose_inv", "extra_trans", "bbox_center",
 def build_opt_net(conf, dataset, save_root: str, resolutions=None,
                   skinner_res=(129, 225, 65), train_cfg: TrainConfig | None = None,
                   seed: int = 0, smpl_dir: str | None = None, device=None):
-    """Assemble the GarmentOptimNetwork for a scene on ``device``."""
-    device = torch.device(device) if device is not None else torch.device("cpu")
+    """Assemble the GarmentOptimNetwork for a scene on ``device`` (the CUDA
+    card when none is given)."""
+    device = resolve_device(device)
     garment_names = TEMPLATE_GARMENT[conf.get_string("train.garment_type")]
     init_pose_type = conf.get_int("train.skinner_pose_type", 0)
 

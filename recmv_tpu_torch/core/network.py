@@ -27,6 +27,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from .. import resolve_device
 from ..config.constants import CURVE_AWARE
 from ..data.dataset import trainable_mask
 from ..models import camera as cam_mod
@@ -94,7 +95,7 @@ class GarmentOptimNetwork:
         self.dataset = dataset
         self.params = params
         self.statics = statics
-        self.device = torch.device(device) if device is not None else torch.device("cpu")
+        self.device = resolve_device(device)
         self.seg3d_cfg = seg3d_cfg
         self.cfg = train_cfg or TrainConfig()
         self.sdf_shrink = float(sdf_shrink)

@@ -21,6 +21,7 @@ import os.path as osp
 import numpy as np
 import torch
 
+from .. import resolve_device
 from ..models import camera as cam_mod
 from ..models.skinner import SkinnerParams, initial_lbs_skinner, skinner_apply
 from ..models.smpl import synthetic_body_model, synthetic_body_sdf
@@ -208,9 +209,9 @@ def generate_scene(out_dir: str, n_frames: int = 10, image_size: int = 256,
                    yaw_range: float = 2 * np.pi, skinner_res=(49, 81, 25),
                    raster_cap: int = 1024, garment_type: str = "synthetic-tube",
                    device=None):
-    """Create a full scene on ``device`` (skinning and rasterization run
-    there). Returns the scene directory."""
-    device = torch.device(device) if device is not None else torch.device("cpu")
+    """Create a full scene on ``device``, the CUDA card when none is given
+    (skinning and rasterization run there). Returns the scene directory."""
+    device = resolve_device(device)
     os.makedirs(out_dir, exist_ok=True)
     for sub in ("imgs", "masks", "parsing_SCH_ATR", "featurelines", "normals", "gt_meshes"):
         os.makedirs(osp.join(out_dir, sub), exist_ok=True)

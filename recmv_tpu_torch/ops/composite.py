@@ -13,6 +13,10 @@ wrapper counts its kernel launches (``composite_tiles.launches``,
 coordinates cx, cy and, only when autograd asks for it, to the features;
 val, cnt and inv_r2 are gates and get none. ``composite_tiles_plain`` is
 the same function built from the two plain versions on any device.
+
+Both kernels walk, per warp of an 8×4 pixel sub-tile, only the
+candidates a conservative cull keeps (``csrc/composite_fwd.cu``);
+``subtile_keep`` is the cull's plain model, which the tests hold to it.
 """
 
 from __future__ import annotations
@@ -25,6 +29,8 @@ from .mesh_raster import tile_pixels
 
 EPS = 1e-10
 MAX_C = 8
+SUB_W, SUB_H = 8, 4                 # a warp's sub-tile of pixels in K2 and K3
+CULL_LIMIT = 1.0 + 1.0 / 1024.0     # the kernels' cull threshold on d²_min / r²
 _CHUNK_ELEMS = 1 << 24
 
 
@@ -41,6 +47,8 @@ def _check(cx, cy, val, feat, cnt, tile):
         raise ValueError(f"composite_tiles takes 1..{MAX_C} channels, got {C}")
     if tile not in (8, 16, 32):
         raise ValueError(f"tile must be 8, 16 or 32, got {tile}")
+    if cx.device.type == "cuda" and cap >= 1 << 16:
+        raise ValueError(f"the composite kernels take caps below 65536, got {cap}")
     if len({a.device for a in (cx, cy, val, feat, cnt)}) != 1:
         raise ValueError("composite_tiles inputs must share one device")
 
@@ -67,6 +75,28 @@ def _transmittance(w):
     """Exclusive cumulative product of (1 − w + ε) over candidates (dim 2)."""
     trans = torch.cumprod(1.0 - w + EPS, dim=2)
     return torch.cat([torch.ones_like(trans[:, :, :1]), trans[:, :, :-1]], dim=2)
+
+
+def subtile_keep(cx, cy, inv_r2: float, Wt: int, tile: int):
+    """Plain model of the cull in K2 and K3 (``may_touch`` in
+    ``csrc/composite_fwd.cu``), for the tests. Warp w of a tile owns the
+    8×4 pixel sub-tile at ((w mod tile/8)·8, ⌊w / (tile/8)⌋·4) and keeps a
+    candidate unless (ex² + ey²)·inv_r2 ≥ ``CULL_LIMIT``, with e the distance
+    from the centre to the sub-tile's pixel box along each axis, in the
+    kernels' float32 operations. cx, cy (B, T, cap) → (B, T, tile²/32, cap)
+    bool, True where warp w lists the candidate."""
+    T = cx.shape[1]
+    per_row = tile // SUB_W
+    w = torch.arange(tile * tile // 32, device=cx.device)
+    t = torch.arange(T, device=cx.device)[:, None]
+    bx0 = ((t % Wt) * tile + (w % per_row) * SUB_W).to(torch.float32)[None, :, :, None]
+    by0 = ((t // Wt) * tile + (w // per_row) * SUB_H).to(torch.float32)[None, :, :, None]
+    x, y = cx[:, :, None, :], cy[:, :, None, :]
+    zero = torch.zeros((), dtype=torch.float32, device=cx.device)
+    ex = torch.fmax(torch.fmax(bx0 - x, x - (bx0 + (SUB_W - 1))), zero)
+    ey = torch.fmax(torch.fmax(by0 - y, y - (by0 + (SUB_H - 1))), zero)
+    inv = torch.tensor(inv_r2, dtype=torch.float32, device=cx.device)
+    return ~((ex * ex + ey * ey) * inv >= CULL_LIMIT)
 
 
 def _composite_tiles_torch(cx, cy, val, feat, inv_r2: float, cnt, Wt: int, tile: int):
@@ -165,17 +195,16 @@ def composite_tiles_bwd(cx, cy, val, feat, inv_r2: float, cnt, Wt: int, tile: in
     dfeat = torch.empty_like(feat) if need_dfeat else None
     if B * T == 0:
         return dcx, dcy, dfeat
-    lib = _build.kernels()
-    scratch = torch.empty(lib.composite_bwd_scratch(B, T, cap, C, tile, int(need_dfeat)) // 4,
-                          dtype=torch.float32, device=cx.device)
     with torch.cuda.device(cx.device):
-        err = lib.composite_bwd_launch(
+        err = _build.kernels().composite_bwd_launch(
             cx.data_ptr(), cy.data_ptr(), val.data_ptr(), feat.data_ptr(), cnt.data_ptr(),
             g.data_ptr(), dcx.data_ptr(), dcy.data_ptr(),
-            dfeat.data_ptr() if need_dfeat else None, scratch.data_ptr(), float(inv_r2),
+            dfeat.data_ptr() if need_dfeat else None, float(inv_r2),
             B, T, cap, C, Wt, tile, int(need_dfeat), torch.cuda.current_stream().cuda_stream)
     if err != 0:
-        raise RuntimeError(f"composite_tiles_bwd kernel launch failed with CUDA error {err}")
+        raise RuntimeError(f"composite_tiles_bwd kernel launch failed with CUDA error {err}"
+                           + (" (cap and channels need more shared memory than a block has)"
+                              if err == 9 else ""))
     composite_tiles_bwd.launches += 1
     return dcx, dcy, dfeat
 

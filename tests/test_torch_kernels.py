@@ -5,7 +5,11 @@ there):
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_kernels.py
 
-Tests marked ``gpu`` need a CUDA device and skip without one. Kernel
+Tests marked ``gpu`` need a CUDA device and skip without one. The CPU
+tests hold the composite kernels' per-warp cull (``subtile_keep``, the
+plain model of ``may_touch``) to its promise: every (pixel, candidate)
+pair it drops has raw = 1 − d²/r² ≤ 0, so w == 0 in float32, and a walk
+of the chain over the culled lists gives the dense walk's bits. Kernel
 tolerances: mesh face ids equal except ≤ 1e-4 of pixels (ties on shared
 edges), zbuf within 1e-5 where they agree; composite within 1e-5
 absolute (float32, the plain version's cumulative product and sum run in
@@ -159,6 +163,265 @@ def test_wrappers_refuse_bad_inputs(cuda):
         composite_tiles(c, c, c, torch.zeros(1, 4, 9, 8, device=cuda), 1.0, cnt, 2, 32)
 
 
+def _real_splats(dev, seed, B, image, r_pix, n_pts, tile, C, cap):
+    """composite_tile_inputs of a real splat: a blob of screen points (a
+    dense disc plus a sparse scatter) at radius r_pix pixels."""
+    from recmv_tpu_torch.ops.rasterizer import composite_tile_inputs
+
+    rng = np.random.RandomState(seed)
+    ang = rng.rand(B, n_pts) * 2 * np.pi
+    rad = np.sqrt(rng.rand(B, n_pts)) * image * 0.3
+    xy = np.stack([image / 2 + rad * np.cos(ang), image / 2 + rad * np.sin(ang)], -1)
+    xy[:, ::7] = rng.rand(B, len(range(0, n_pts, 7)), 2) * image
+    pts = np.concatenate([xy, 1.0 + rng.rand(B, n_pts, 1)], -1).astype(np.float32)
+    feats = torch.as_tensor(rng.rand(n_pts, C), dtype=torch.float32, device=dev)
+    radius = r_pix * 2.0 / image
+    return composite_tile_inputs(torch.as_tensor(pts, device=dev), radius, feats,
+                                 (image, image), tile=tile, cap=cap)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("tile,C,r_pix", [(32, 1, 1.62), (16, 2, 1.62), (32, 2, 3.24)])
+def test_composite_kernels_on_real_splats(cuda, tile, C, r_pix):
+    """K2 and K3 on the candidate lists of a real splat at the mask
+    branch's radius: K2 within 1e-5, K3 within 1e-5 of the largest plain
+    entry and the same bits on a second launch."""
+    from recmv_tpu_torch.ops.composite import (_composite_tiles_bwd_torch,
+                                               _composite_tiles_torch, composite_tiles,
+                                               composite_tiles_bwd)
+
+    cx, cy, val, feat, inv_r2, cnt, Wt = _real_splats(cuda, tile + C, 3, 256, r_pix, 20000,
+                                                      tile, C, 1536)
+    args = (cx, cy, val, feat, inv_r2, cnt, Wt, tile)
+    got, want = composite_tiles(*args), _composite_tiles_torch(*args)
+    assert want.max().item() > 0.5 and int(cnt.max()) > 256
+    torch.testing.assert_close(got, want, atol=1e-5, rtol=0)
+    gen = torch.Generator(device=cuda).manual_seed(tile)
+    g = torch.randn(want.shape, generator=gen, device=cuda)
+    for need in (False, True):
+        got, again = composite_tiles_bwd(*args, g, need), composite_tiles_bwd(*args, g, need)
+        want = _composite_tiles_bwd_torch(*args, g, need)
+        torch.cuda.synchronize()
+        for a, b, c in zip(got, want, again):
+            if b is None:
+                continue
+            assert torch.equal(a, c)
+            torch.testing.assert_close(a, b, atol=1e-5 * max(1.0, b.abs().max().item()), rtol=0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("C,cap,need_dfeat", [(8, 6000, False), (8, 1536, True)])
+def test_composite_kernels_at_their_shared_memory_limits(cuda, C, cap, need_dfeat):
+    """Eight channels at caps that make K2 stage its candidates in two
+    segments (6000) and make K3 fill shared memory exactly (1536 with the
+    feature gradient: segments of 128); both against the plain versions.
+    A cap beyond K3's shared memory raises."""
+    from recmv_tpu_torch.ops.composite import (_composite_tiles_bwd_torch,
+                                               _composite_tiles_torch, composite_tiles,
+                                               composite_tiles_bwd)
+
+    rng = np.random.RandomState(C + cap)
+    cx, cy, val, feat, cnt, _ = _composite_case(rng, cuda, 1, 4, cap, C, 32, 2)
+    g = torch.as_tensor(rng.randn(1, 4, C, 1024), dtype=torch.float32, device=cuda)
+    args = (cx, cy, val, feat, 1.0 / 9.0, cnt, 2, 32)
+    torch.testing.assert_close(composite_tiles(*args), _composite_tiles_torch(*args),
+                               atol=1e-5, rtol=0)
+    got, again = composite_tiles_bwd(*args, g, need_dfeat), composite_tiles_bwd(*args, g, need_dfeat)
+    want = _composite_tiles_bwd_torch(*args, g, need_dfeat)
+    torch.cuda.synchronize()
+    for a, b, c in zip(got, want, again):
+        if b is not None:
+            assert torch.equal(a, c)
+            torch.testing.assert_close(a, b, atol=1e-5 * max(1.0, b.abs().max().item()), rtol=0)
+    if need_dfeat:
+        big = [torch.zeros(1, 4, 4000, device=cuda) for _ in range(3)]
+        with pytest.raises(RuntimeError):
+            composite_tiles_bwd(*big, torch.zeros(1, 4, C, 4000, device=cuda), 1.0,
+                                torch.zeros(1, 4, dtype=torch.int32, device=cuda), 2, 32,
+                                g, True)
+
+
+def _pixel_warp(tile):
+    """The warp of the kernels that owns each pixel p = y·tile + x."""
+    from recmv_tpu_torch.ops.composite import SUB_H, SUB_W
+
+    p = torch.arange(tile * tile)
+    return (p // tile // SUB_H) * (tile // SUB_W) + (p % tile) // SUB_W
+
+
+def _pair_keep(cx, cy, inv_r2, cnt, Wt, tile):
+    """(B, T, tile², cap) bool: the pixel's warp lists the candidate and
+    the candidate is below the tile's count."""
+    from recmv_tpu_torch.ops.composite import subtile_keep
+
+    keep = subtile_keep(cx, cy, inv_r2, Wt, tile)[:, :, _pixel_warp(tile)]
+    return keep & (torch.arange(cx.shape[2]) < cnt[..., None])[:, :, None, :]
+
+
+def _raw(cx, cy, inv_r2, Wt, tile):
+    """a = d²·inv_r2 and raw = 1 − a per (frame, tile, pixel, candidate),
+    in the kernels' float32 operations → (a, raw)."""
+    from recmv_tpu_torch.ops.mesh_raster import tile_pixels
+
+    px, py = tile_pixels(cx.shape[1], Wt, tile)
+    dx = px[None, :, :, None] - cx[:, :, None, :]
+    dy = py[None, :, :, None] - cy[:, :, None, :]
+    a = (dx * dx + dy * dy) * torch.tensor(inv_r2, dtype=torch.float32)
+    return a, 1.0 - a
+
+
+def _adversarial(tile, Wt, inv_r2):
+    """Centres a few float32 ulps either side of the cull's limit and of
+    raw = 0, off each side and corner of every sub-tile box of tile 0 →
+    (cx, cy) (1, Wt, n), the same list in every tile."""
+    from recmv_tpu_torch.ops.composite import CULL_LIMIT, SUB_H, SUB_W
+
+    inv = np.float32(inv_r2)
+    cs = []
+    for v in (1.0, CULL_LIMIT):
+        e = np.float32(np.sqrt(np.float64(v) / np.float64(inv)))
+        for k in range(-6, 7):
+            ek = e
+            for _ in range(abs(k)):
+                ek = np.nextafter(ek, np.float32(np.inf if k > 0 else 0.0))
+            cs.append(ek)
+    es = np.asarray(cs, np.float32)
+    pts = []
+    for w in range(tile * tile // 32):
+        x0 = np.float32((w % (tile // SUB_W)) * SUB_W)
+        y0 = np.float32((w // (tile // SUB_W)) * SUB_H)
+        x1, y1 = x0 + np.float32(SUB_W - 1), y0 + np.float32(SUB_H - 1)
+        xm, ym = x0 + np.float32(3.5), y0 + np.float32(1.5)
+        diag = es / np.float32(np.sqrt(2.0))
+        for ex, ey in ((x1 + es, np.full_like(es, ym)), (x0 - es, np.full_like(es, ym)),
+                       (np.full_like(es, xm), y1 + es), (np.full_like(es, xm), y0 - es),
+                       (x1 + diag, y1 + diag), (x0 - diag, y0 - diag)):
+            pts.append(np.stack([ex, ey], -1))
+    p = np.concatenate(pts).astype(np.float32)
+    cx = np.broadcast_to(p[:, 0], (Wt, len(p)))[None]
+    cy = np.broadcast_to(p[:, 1], (Wt, len(p)))[None]
+    return torch.as_tensor(np.ascontiguousarray(cx)), torch.as_tensor(np.ascontiguousarray(cy))
+
+
+@pytest.mark.parametrize("tile", [8, 16, 32])
+@pytest.mark.parametrize("r_pix", [1.62, 3.24, 6.3, 30.0])
+def test_cull_drops_only_zero_weights(tile, r_pix):
+    """Every (pixel, candidate) pair the kernels' cull drops has raw ≤ 0,
+    hence w == 0 in float32: on random centres, on a real splat's binned
+    lists and on adversarial centres a few ulps either side of the cull's
+    limit and of raw = 0."""
+    from recmv_tpu_torch.ops.composite import CULL_LIMIT, subtile_keep
+
+    rng = np.random.RandomState(tile + int(r_pix * 10))
+    Wt = 2
+    inv_r2 = float(np.float32(1.0 / (r_pix * r_pix)))
+    lo, hi = -r_pix - 4.0, Wt * tile + r_pix + 4.0
+    rand = [torch.as_tensor(lo + rng.rand(2, 2 * Wt, 400) * (hi - lo), dtype=torch.float32)
+            for _ in range(2)]
+    splat = _real_splats("cpu", tile, 1, 96, r_pix, 3000, tile, 1, 512)
+    adv = _adversarial(tile, Wt, inv_r2)
+    cases = {"random": (*rand, inv_r2, torch.full((2, 2 * Wt), 400, dtype=torch.int32), Wt),
+             "splat": (splat[0], splat[1], splat[4], splat[5], splat[6]),
+             "adversarial": (*adv, inv_r2, torch.full((1, Wt), adv[0].shape[2],
+                                                       dtype=torch.int32), Wt)}
+    for name, (cx, cy, inv, cnt, wt) in cases.items():
+        live = (torch.arange(cx.shape[2]) < cnt[..., None])[:, :, None, :]
+        keep = _pair_keep(cx, cy, inv, cnt, wt, tile)
+        a, raw = _raw(cx, cy, inv, wt, tile)
+        dropped = live & ~keep
+        assert int(dropped.sum()) > 0, name
+        assert bool((raw[dropped] <= 0.0).all()), name
+        assert bool((torch.clamp(raw, 0.0, 1.0)[dropped] == 0.0).all()), name
+    # the adversarial centres probe both edges: the margin keeps some pairs
+    # with w = 0, and some dropped warps' nearest pixel sits within ulps of
+    # the limit
+    assert int((keep & (raw <= 0.0)).sum()) > 0
+    first = torch.argsort(_pixel_warp(tile), stable=True).reshape(-1, 32)   # (warp, lane)
+    a_min = a[:, :, first].amin(3)                                          # (B, T, warp, cap)
+    dropped_warps = ~subtile_keep(cx, cy, inv_r2, Wt, tile)
+    assert int((dropped_warps & (a_min < CULL_LIMIT * (1 + 4e-7))).sum()) > 0
+    if r_pix == 1.62 and tile == 32:
+        # the cull is tight: a real splat at the mask's radius is listed by
+        # few of a tile's 32 warps
+        kept = subtile_keep(splat[0], splat[1], splat[4], splat[6], tile)
+        live = torch.arange(splat[0].shape[2]) < splat[5][..., None]
+        assert (kept & live[:, :, None]).sum().item() < 0.2 * 32 * live.sum().item()
+
+
+def _walk(cx, cy, val, feat, inv_r2, cnt, Wt, tile, g, keep=None):
+    """The kernels' chain, pixel by pixel and candidate by candidate in z
+    order, in their float32 operations and order: the forward (K2) and the
+    backward (K3) with the same S and T chains. With ``keep`` (B, T, tile²,
+    cap) the walk skips every pair it drops, as the kernels' lists do.
+    Returns (out, dcx, dcy, dfeat)."""
+    from recmv_tpu_torch.ops.composite import EPS
+    from recmv_tpu_torch.ops.mesh_raster import tile_pixels
+
+    B, T, cap = cx.shape
+    C = feat.shape[2]
+    _, raw = _raw(cx, cy, inv_r2, Wt, tile)
+    px, py = tile_pixels(T, Wt, tile)
+    inv = torch.tensor(inv_r2, dtype=torch.float32)
+    step = (torch.arange(cap) < cnt[..., None])[:, :, None, :].expand(B, T, tile * tile, cap)
+    if keep is not None:
+        step = step & keep
+    w = torch.clamp(raw, 0.0, 1.0) * val[:, :, None, :]
+    acc = torch.zeros(B, T, C, tile * tile)
+    trans = torch.ones(B, T, tile * tile)
+    Ts = []
+    for k in range(cap):
+        Ts.append(trans)
+        wk, sk = w[..., k], step[..., k]
+        wT = wk * trans
+        acc = torch.where(sk[:, :, None], acc + wT[:, :, None] * feat[:, :, :, k, None], acc)
+        trans = torch.where(sk, trans * ((1.0 - wk) + EPS), trans)
+    S = torch.zeros(B, T, C, tile * tile)
+    dcx, dcy, dfeat = torch.zeros(B, T, cap), torch.zeros(B, T, cap), torch.zeros(B, T, C, cap)
+    for k in reversed(range(cap)):
+        wk, sk, Tk = w[..., k], step[..., k], Ts[k]
+        wT = wk * Tk
+        dLdw = torch.zeros(B, T, tile * tile)
+        for c in range(C):
+            dLdw = dLdw + g[:, :, c] * (Tk * feat[:, :, c, k, None] - S[:, :, c] / ((1.0 - wk) + EPS))
+        rk = raw[..., k]
+        active = ((rk > 0.0) & (rk < 1.0)).to(torch.float32) * val[:, :, k, None]
+        dd2 = dLdw * (-inv) * active
+        dx = px[None] - cx[:, :, k, None]
+        dy = py[None] - cy[:, :, k, None]
+        dcx[..., k] = torch.where(sk, dd2 * (-2.0) * dx, 0.0).sum(-1)
+        dcy[..., k] = torch.where(sk, dd2 * (-2.0) * dy, 0.0).sum(-1)
+        dfeat[..., k] = torch.where(sk[:, :, None], g * wT[:, :, None], 0.0).sum(-1)
+        S = torch.where(sk[:, :, None], S + wT[:, :, None] * feat[:, :, :, k, None], S)
+    return acc, dcx, dcy, dfeat
+
+
+@pytest.mark.parametrize("tile", [8, 16, 32])
+@pytest.mark.parametrize("r_pix", [1.62, 6.3])
+def test_culled_walk_matches_dense(tile, r_pix):
+    """The chain walked over the culled lists gives the dense walk's bits
+    (forward and backward: a dropped pair only adds exact zeros), and both
+    agree with the plain versions of K2 and K3 within the kernels'
+    tolerances (1e-5 absolute; 1e-5 of the largest plain entry)."""
+    from recmv_tpu_torch.ops.composite import _composite_tiles_bwd_torch, _composite_tiles_torch
+
+    cx, cy, val, feat, inv_r2, cnt, Wt = _real_splats("cpu", tile, 2, 64, r_pix, 1500, tile,
+                                                      2, 96)
+    rng = np.random.RandomState(tile)
+    g = torch.as_tensor(rng.randn(*cx.shape[:2], 2, tile * tile), dtype=torch.float32)
+    args = (cx, cy, val, feat, inv_r2, cnt, Wt, tile)
+    keep = _pair_keep(cx, cy, inv_r2, cnt, Wt, tile)
+    dense, culled = _walk(*args, g), _walk(*args, g, keep)
+    assert keep.float().mean().item() < 0.6
+    for a, b in zip(dense, culled):
+        assert torch.equal(a, b)
+    out = _composite_tiles_torch(*args)
+    assert out.max().item() > 0.5
+    torch.testing.assert_close(culled[0], out, atol=1e-5, rtol=0)
+    for a, b in zip(culled[1:], _composite_tiles_bwd_torch(*args, g, True)):
+        assert b.abs().max().item() > 0.0
+        torch.testing.assert_close(a, b, atol=1e-5 * max(1.0, b.abs().max().item()), rtol=0)
+
+
 def test_port_imports_no_jax():
     """Every module of the port imports with JAX made unimportable."""
     code = (
@@ -179,6 +442,53 @@ def test_port_imports_no_jax():
                          text=True, timeout=300)
     assert out.returncode == 0, out.stderr
     assert int(out.stdout.split()[-1]) >= 30
+
+
+def test_build_compiles_only_the_ports_sources(monkeypatch):
+    """Every source ``_build`` hands a compiler lies under
+    ``recmv_tpu_torch/`` and exists there."""
+    from recmv_tpu_torch import _build
+
+    seen = []
+
+    def record(tag, compiler, flags, sources):
+        seen.extend(sources)
+        raise LookupError(tag)
+
+    monkeypatch.setattr(_build, "_compile", record)
+    monkeypatch.setattr(_build, "_LIBS", {})
+    for build in (_build.kernels, _build.meshops):
+        with pytest.raises(LookupError):
+            build()
+    pkg = osp.join(ROOT, "recmv_tpu_torch") + os.sep
+    assert len(seen) == len(_build.KERNEL_SOURCES) + 1
+    for src in seen:
+        assert osp.abspath(src).startswith(pkg) and osp.isfile(src), src
+
+
+@pytest.mark.parametrize("entry", ["generate_scene", "build_opt_net", "GarmentOptimNetwork",
+                                   "skinner_from_jax", "scene_from_jax"])
+def test_entry_points_need_a_card_or_a_device(monkeypatch, tmp_path, entry):
+    """The port's entry points run on the card when no device is given,
+    and raise (never fall back to the CPU) when there is no card. The
+    check runs first, so placeholder arguments reach nothing else."""
+    from recmv_tpu_torch import bridge
+    from recmv_tpu_torch.core.builder import build_opt_net
+    from recmv_tpu_torch.core.network import GarmentOptimNetwork
+    from recmv_tpu_torch.data.synthetic import generate_scene
+
+    call = {"generate_scene": lambda: generate_scene(str(tmp_path / "scene")),
+            "build_opt_net": lambda: build_opt_net(None, None, str(tmp_path)),
+            "GarmentOptimNetwork": lambda: GarmentOptimNetwork(None, None, {}, None, None),
+            "skinner_from_jax": lambda: bridge.skinner_from_jax({}),
+            "scene_from_jax": lambda: bridge.scene_from_jax({})}[entry]
+    if not torch.cuda.is_available():          # no card here: the default must raise
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        call()
+    assert not (tmp_path / "scene").exists()
 
 
 def test_chip_smoke_refuses_without_cuda_or_repo(tmp_path):

@@ -91,7 +91,7 @@ def test_bridge_round_trip(skinners):
         "sdf": jp, "garment_sdfs": (jp,),
         "translator": jtrans(jax.random.PRNGKey(1), condlen=32)[0],
         "render": jrender(jax.random.PRNGKey(2), condlen=16, multires_v=4)[0],
-        "skinner": bridge.skinner_to_numpy(bridge.skinner_from_jax(skinners[0]))})
+        "skinner": bridge.skinner_to_numpy(bridge.skinner_from_jax(skinners[0], device="cpu"))})
     params = {"sdf": net, "garment_sdfs": torch.nn.ModuleList([_sdf_pair(1)[2]]),
               "translator": init_translator(gen, condlen=32),
               "render": init_render_net(gen, condlen=16, multires_v=4),
@@ -110,7 +110,7 @@ def test_bridge_round_trip(skinners):
              "shape": rng.randn(10).astype(np.float32),
              "conds": {"deformer": rng.randn(4, 8).astype(np.float32)},
              "camera": {"focal_length": np.ones(2, np.float32)}}
-    got = bridge.scene_to_numpy(bridge.scene_from_jax(scene))
+    got = bridge.scene_to_numpy(bridge.scene_from_jax(scene, device="cpu"))
     assert jax.tree_util.tree_structure(got) == jax.tree_util.tree_structure(scene)
     for a, b in zip(jax.tree_util.tree_leaves(got), jax.tree_util.tree_leaves(scene)):
         np.testing.assert_array_equal(a, b)
@@ -223,7 +223,7 @@ def skinners():
 
 def test_skinner_construction(skinners):
     sk_j, sk_t = skinners
-    ref = bridge.skinner_to_numpy(bridge.skinner_from_jax(sk_j))
+    ref = bridge.skinner_to_numpy(bridge.skinner_from_jax(sk_j, device="cpu"))
     for k, v in bridge.skinner_to_numpy(sk_t).items():
         np.testing.assert_allclose(v, ref[k], atol=ATOL, rtol=RTOL, err_msg=k)
 
@@ -233,7 +233,7 @@ def test_skinner_apply(skinners):
     from recmv_tpu_torch.models.skinner import skinner_apply
 
     sk_j, _ = skinners
-    sk = bridge.skinner_from_jax(sk_j)
+    sk = bridge.skinner_from_jax(sk_j, device="cpu")
     rng = np.random.RandomState(8)
     ps = (rng.randn(2, 50, 3) * 0.3).astype(np.float32)
     also = (rng.randn(2, 50, 3) * 0.3).astype(np.float32)
@@ -257,7 +257,7 @@ def test_posed_skeleton_and_bbox(skinners):
     from recmv_tpu_torch.models.skinner import bbox_size, posed_skeleton
 
     sk_j, _ = skinners
-    sk = bridge.skinner_from_jax(sk_j)
+    sk = bridge.skinner_from_jax(sk_j, device="cpu")
     poses = (np.random.RandomState(11).randn(3, 24, 3) * 0.3).astype(np.float32)
     _close(posed_skeleton(sk, _t(poses)), jskel(sk_j, jnp.asarray(poses)))
     for got, want in zip(bbox_size(sk), jbbox(sk_j)):
@@ -298,7 +298,7 @@ def test_deformer_jacobian_and_cardinal_rays(skinners):
     from recmv_tpu_torch.models.skinner import skinner_apply
 
     sk_j, _ = skinners
-    sk = bridge.skinner_from_jax(sk_j)
+    sk = bridge.skinner_from_jax(sk_j, device="cpu")
     rng = np.random.RandomState(10)
     ps = (rng.randn(60, 3) * 0.3).astype(np.float32)
     poses = (rng.randn(2, 24, 3) * 0.2).astype(np.float32)
@@ -345,7 +345,7 @@ def test_graft_entry_forward():
     rn = init_render_net(gen, condlen=256, multires_v=4)
     for mod, key in ((sdf, "sdf"), (tr, "translator"), (rn, "render")):
         bridge.load_mlp(mod, _np_tree(jparams[key]))
-    sk = bridge.skinner_from_jax(jparams["skinner"])
+    sk = bridge.skinner_from_jax(jparams["skinner"], device="cpu")
 
     p = _t(pts)
     s, feat = sdf_apply(sdf, p, 1.0)

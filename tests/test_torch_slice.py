@@ -64,7 +64,7 @@ def scenes(tmp_path_factory):
 
     root = tmp_path_factory.mktemp("torch_slice")
     kw = dict(n_frames=2, image_size=48, skinner_res=(17, 25, 9))
-    return jgen(str(root / "jax"), **kw), generate_scene(str(root / "port"), **kw)
+    return jgen(str(root / "jax"), **kw), generate_scene(str(root / "port"), device="cpu", **kw)
 
 
 def test_generated_scenes_agree(scenes):
@@ -127,7 +127,7 @@ def nets(scenes, tmp_path_factory):
     ds_t, _ = get_dataset_and_loader(jdir, *args, **kw)
     net_t = build_opt_net(ConfigFactory.parse_file(conf_path), ds_t, str(out / "port"),
                           resolutions=pyr, skinner_res=(17, 25, 9),
-                          train_cfg=_train_cfg(TrainConfig))
+                          train_cfg=_train_cfg(TrainConfig), device="cpu")
 
     tr = net_j.params["translator"]
     last = f"lin{len(tr) - 1}"
@@ -369,7 +369,8 @@ def test_port_forward_step_on_port_scene(scenes, tmp_path):
     net = build_opt_net(ConfigFactory.parse_file(os.path.join(ROOT, "configs", "synthetic",
                                                               "smoke.conf")),
                         ds, str(tmp_path / "result"), resolutions=((7, 9, 5), (13, 17, 9)),
-                        skinner_res=(17, 25, 9), train_cfg=_train_cfg(TrainConfig))
+                        skinner_res=(17, 25, 9), train_cfg=_train_cfg(TrainConfig),
+                        device="cpu")
     shrink_garment_init(net.params)
     info, solved = net.forward_step(ds.get_batch(FIDS), FIDS, RATIO,
                                     generator=torch.Generator().manual_seed(0))
@@ -434,7 +435,8 @@ def test_build_opt_net_stays_inside_checkout(scenes, tmp_path, monkeypatch):
                                        shuffle=False, garment_type="synthetic-tube",
                                        data_type="synthe")
         build_opt_net(conf, ds, save_root, resolutions=((7, 9, 5), (13, 17, 9)),
-                      skinner_res=(17, 25, 9), train_cfg=_train_cfg(TrainConfig))
+                      skinner_res=(17, 25, 9), train_cfg=_train_cfg(TrainConfig),
+                      device="cpu")
 
     build(str(tmp_path / "warm"))             # lazy imports happen here, unrecorded
     stat = os.stat

@@ -237,7 +237,7 @@ def _skin_pair():
     apose = np.zeros((24, 3), np.float32)
     apose[1, 2], apose[2, 2], apose[16, 2], apose[17, 2] = 0.17, -0.17, -0.79, 0.79
     sk_j, _, _ = jinit(jbody(n_subdiv=16), jnp.zeros(10), apose, resolution=(9, 13, 7))
-    return sk_j, bridge.skinner_from_jax(sk_j)
+    return sk_j, bridge.skinner_from_jax(sk_j, device="cpu")
 
 
 def test_deformer_jacobian_differentiable():
@@ -460,7 +460,7 @@ def _build_pair(root, jdir):
     ds_t, _ = get_dataset_and_loader(jdir, *args, **kw)
     net_t = build_opt_net(ConfigFactory.parse_file(conf_path), ds_t, str(root / "port"),
                           resolutions=pyr, skinner_res=(17, 25, 9),
-                          train_cfg=_train_cfg(TrainConfig))
+                          train_cfg=_train_cfg(TrainConfig), device="cpu")
     net_t.conf = _NoPcSdfConf(net_t.conf)
     tr = net_j.params["translator"]
     last = f"lin{len(tr) - 1}"
@@ -497,7 +497,7 @@ def nets(tmp_path_factory):
 
     root = tmp_path_factory.mktemp("torch_train")
     scene = generate_scene(str(root / "scene"), n_frames=32, image_size=48,
-                           skinner_res=(17, 25, 9))
+                           skinner_res=(17, 25, 9), device="cpu")
     net_j, net_t, ds_j = _build_pair(root, scene)
     return net_j, net_t, ds_j.get_batch(FIDS)
 
