@@ -1,26 +1,31 @@
-"""A/B of two builds of the point-composite kernels K2 (forward) and K3
-(backward) on one CUDA device, on the arguments the main path gives them.
+"""A/B of two builds of the port's kernels on one CUDA device, on the
+arguments the main path gives them: the mesh z-buffer K1 and the
+point-composite kernels K2 (forward) and K3 (backward).
 
-    python3 chip_ab_composite.py OTHER_CHECKOUT [OTHER_CHECKOUT ...]
+    python3 chip_ab.py OTHER_CHECKOUT [OTHER_CHECKOUT ...]
 
 Each OTHER_CHECKOUT is another checkout of this repository (for example an
 earlier commit unpacked with ``git archive`` into a directory that
-``.gitignore`` lists). Its ``recmv_tpu_torch/csrc/composite_{fwd,bwd}.cu``
-are built beside this checkout's kernels; both builds then run, in turns
-(other, this, this, other), on:
+``.gitignore`` lists). Its ``recmv_tpu_torch/csrc/{mesh_raster,
+composite_fwd,composite_bwd}.cu`` are built beside this checkout's
+kernels; both builds then run, in turns (other, this, this, other), on:
 
-- the ② mask composite of a training batch (``pc_branch_loss`` forward and
-  backward on the smoke scene of ``chip_smoke.py``: 3 frames at 540²,
-  cap 1536, one channel, no feature gradient), and
-- the dense 1080² sphere of ``chip_smoke.py`` phases 2 and 9 (cap 768,
-  one channel).
+- K1: the seeding z-buffer of a batch on the smoke scene of
+  ``chip_smoke.py`` (its phase 8 arguments: 3 frames at 540², cap 512),
+  the dense 1080² sphere of its phase 2 (cap 512) and the ① body z-buffer
+  of its phase 8b (3 frames at 270², cap 512);
+- K2 and K3: the ② mask composite of a training batch (``pc_branch_loss``
+  forward and backward on the smoke scene: 3 frames at 540², cap 1536,
+  one channel, no feature gradient) and the dense 1080² sphere of
+  ``chip_smoke.py`` phases 2 and 9 (cap 768, one channel).
 
 It prints, per kernel and input, both builds' mean milliseconds (CUDA
 events, 20 launches after warm-up, each turn; and the kernels' own
-device time per call from a torch.profiler trace), whether K2's two outputs
-are the same bits, the largest difference between the two K3 outputs and
-each build's error against the plain PyTorch version; then the card's name
-and power limit. It exits non-zero without a card.
+device time per call from a torch.profiler trace), whether K1's and K2's
+two outputs are the same bits (K1 also against the plain version), the
+largest difference between the two K3 outputs and each build's error
+against the plain PyTorch version; then the card's name and power limit.
+It exits non-zero without a card, or when the builds disagree.
 """
 
 from __future__ import annotations
@@ -35,19 +40,21 @@ import chip_smoke
 
 
 def other_kernels(root: str):
-    """The other checkout's K2 and K3 as (fwd, bwd) callables with the
-    signatures of ``composite_tiles``' forward and backward. The backward
-    takes a device scratch buffer when that build asks for one
-    (``composite_bwd_scratch``)."""
+    """The other checkout's K1, K2 and K3 as (mesh, fwd, bwd) callables
+    with the signatures of ``mesh_tiles`` and of ``composite_tiles``'
+    forward and backward. The backward takes a device scratch buffer when
+    that build asks for one (``composite_bwd_scratch``)."""
     import torch
 
     from recmv_tpu_torch import _build
 
     csrc = osp.join(root, "recmv_tpu_torch", "csrc")
-    path = _build._compile("other_composite", _build._nvcc(), _build.NVCC_FLAGS,
-                           [osp.join(csrc, f) for f in ("composite_fwd.cu", "composite_bwd.cu")])
+    path = _build._compile("other_kernels", _build._nvcc(), _build.NVCC_FLAGS,
+                           [osp.join(csrc, f) for f in _build.KERNEL_SOURCES])
     lib = ctypes.CDLL(path)
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    lib.mesh_tiles_launch.restype = i
+    lib.mesh_tiles_launch.argtypes = [p, p, p, p, p, p, i, i, i, i, i, p]
     lib.composite_fwd_launch.restype = i
     lib.composite_fwd_launch.argtypes = [p, p, p, p, p, p, f, i, i, i, i, i, i, p]
     scratch = hasattr(lib, "composite_bwd_scratch")
@@ -56,6 +63,18 @@ def other_kernels(root: str):
     if scratch:
         lib.composite_bwd_scratch.restype = ctypes.c_long
         lib.composite_bwd_scratch.argtypes = [i] * 6
+
+    def mesh(prm, fid, cnt, Wt, tile):
+        B, T, _, cap = prm.shape
+        zbuf = torch.empty(B, T, tile * tile, device=prm.device)
+        face = torch.empty(B, T, tile * tile, dtype=torch.int32, device=prm.device)
+        bary = torch.empty(B, T, 3, tile * tile, device=prm.device)
+        err = lib.mesh_tiles_launch(prm.data_ptr(), fid.data_ptr(), cnt.data_ptr(),
+                                    zbuf.data_ptr(), face.data_ptr(), bary.data_ptr(), B, T, cap,
+                                    Wt, tile, torch.cuda.current_stream().cuda_stream)
+        if err:
+            raise RuntimeError(f"other K1 failed with CUDA error {err}")
+        return zbuf, face, bary
 
     def fwd(cx, cy, val, feat, inv_r2, cnt, Wt, tile):
         B, T, cap = cx.shape
@@ -89,12 +108,12 @@ def other_kernels(root: str):
             raise RuntimeError(f"other K3 failed with CUDA error {err}")
         return dcx, dcy, dfeat
 
-    return fwd, bwd
+    return mesh, fwd, bwd
 
 
-def device_ms(fn, iters: int = 20) -> float:
+def device_ms(fn, key: str, iters: int = 20) -> float:
     """Mean device milliseconds per call of the kernels ``fn`` launches
-    (those whose name holds "composite"), from a torch.profiler trace."""
+    whose name holds ``key``, from a torch.profiler trace."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -105,8 +124,35 @@ def device_ms(fn, iters: int = 20) -> float:
             fn()
         torch.cuda.synchronize()
     total = sum(getattr(e, "self_device_time_total", 0.0) for e in prof.key_averages()
-                if "composite" in e.key)
+                if key in e.key)
     return total / 1e3 / iters
+
+
+def compare_mesh(tag: str, args, other) -> dict:
+    """Both builds of K1 on one input, timed in turns; both against the
+    plain version, bit for bit."""
+    import torch
+
+    from recmv_tpu_torch.ops.mesh_raster import _mesh_tiles_torch, mesh_tiles
+
+    o_mesh = other[0]
+    res = {"input": tag}
+    with torch.no_grad():
+        a, b, plain = o_mesh(*args), mesh_tiles(*args), _mesh_tiles_torch(*args)
+        torch.cuda.synchronize()
+        res["k1_same_bits"] = all(torch.equal(x, y) for x, y in zip(a, b))
+        res["k1_plain_bits_other"] = all(torch.equal(x, z) for x, z in zip(a, plain))
+        res["k1_plain_bits_this"] = all(torch.equal(y, z) for y, z in zip(b, plain))
+        turns = [chip_smoke.cuda_ms(lambda: fn(*args), 20)
+                 for fn in (o_mesh, mesh_tiles, mesh_tiles, o_mesh)]
+        res["k1_ms_other"] = [turns[0], turns[3]]
+        res["k1_ms_this"] = [turns[1], turns[2]]
+        res["k1_device_ms_other"] = device_ms(lambda: o_mesh(*args), "mesh_tiles")
+        res["k1_device_ms_this"] = device_ms(lambda: mesh_tiles(*args), "mesh_tiles")
+    chip_smoke.log(f"[ab] {json.dumps(res)}")
+    if not (res["k1_same_bits"] and res["k1_plain_bits_this"]):
+        raise AssertionError(f"{tag}: the K1 builds disagree")
+    return res
 
 
 def compare(tag: str, fwd_args, g, need_dfeat: bool, other) -> dict:
@@ -116,7 +162,7 @@ def compare(tag: str, fwd_args, g, need_dfeat: bool, other) -> dict:
     from recmv_tpu_torch.ops.composite import (_composite_fwd, _composite_tiles_bwd_torch,
                                                _composite_tiles_torch, composite_tiles_bwd)
 
-    o_fwd, o_bwd = other
+    _, o_fwd, o_bwd = other
     bargs = fwd_args + (g, need_dfeat)
     res = {"input": tag}
     with torch.no_grad():
@@ -139,8 +185,8 @@ def compare(tag: str, fwd_args, g, need_dfeat: bool, other) -> dict:
                      for fn in (fo, ft, ft, fo)]
             res[f"{name}_ms_other"] = [turns[0], turns[3]]
             res[f"{name}_ms_this"] = [turns[1], turns[2]]
-            res[f"{name}_device_ms_other"] = device_ms(lambda: fo(*args))
-            res[f"{name}_device_ms_this"] = device_ms(lambda: ft(*args))
+            res[f"{name}_device_ms_other"] = device_ms(lambda: fo(*args), "composite")
+            res[f"{name}_device_ms_this"] = device_ms(lambda: ft(*args), "composite")
     chip_smoke.log(f"[ab] {json.dumps(res)}")
     if not res["k2_same_bits"] or res["k3_err_this"] > 1e-5 * res["k3_max_plain"]:
         raise AssertionError(f"{tag}: the builds disagree")
@@ -151,28 +197,31 @@ def main() -> int:
     import torch
 
     if not torch.cuda.is_available() or len(sys.argv) < 2:
-        print("usage: python3 chip_ab_composite.py OTHER_CHECKOUT [...] (on a CUDA device)",
+        print("usage: python3 chip_ab.py OTHER_CHECKOUT [...] (on a CUDA device)",
               file=sys.stderr)
         return 2
     import numpy as np
 
     from recmv_tpu_torch.ops import rasterizer
     from recmv_tpu_torch.ops.composite import composite_tiles
-    from recmv_tpu_torch.ops.rasterizer import composite_tile_inputs
+    from recmv_tpu_torch.ops.mesh_raster import mesh_tiles
+    from recmv_tpu_torch.ops.rasterizer import composite_tile_inputs, mesh_tile_inputs
 
     dev = torch.device("cuda:0")
     card = chip_smoke.card_line()
     others = {root: other_kernels(osp.abspath(root)) for root in sys.argv[1:]}
 
     # the dense sphere of chip_smoke phases 2 and 9
-    scr, _ = chip_smoke.sphere_screen_mesh(dev)
+    scr, faces = chip_smoke.sphere_screen_mesh(dev)
     ones = torch.ones(scr.shape[1], 1, device=dev)
     sphere = composite_tile_inputs(scr, 0.006, ones, (chip_smoke.IMAGE,) * 2, tile=32,
                                    cap=768) + (32,)
+    sphere_mesh = mesh_tile_inputs(scr, faces, (chip_smoke.IMAGE,) * 2, tile=32, cap=512) + (32,)
     gen = torch.Generator(device=dev).manual_seed(1)
     g_sphere = torch.randn(*sphere[0].shape[:2], 1, 32 * 32, generator=gen, device=dev)
 
-    # the mask composite of a training batch, forward and backward
+    # the mask composite of a training batch, forward and backward, and
+    # the seeding z-buffer of the same batch
     ds, sampler, net = chip_smoke.build_smoke_net(dev, tempfile.mkdtemp(prefix="recmv_ab_"))
     fids = next(iter(sampler))
     store = {}
@@ -182,14 +231,24 @@ def main() -> int:
     counts = torch.as_tensor(net.mesh.garment_n, device=dev)
     vs = [v.detach().requires_grad_(True) for v in net.mesh.garment_vs]
     with chip_smoke.rasterizer_kernels(
-            chip_smoke.recording(composite_tiles, store, "composite_tiles"), rasterizer.mesh_tiles):
-        loss = net.pc_branch_loss(vs, fids_t, gt, chip_smoke.RATIO, counts,
-                                  body_mask=dev_b.get("body"))[0]
+            chip_smoke.recording(composite_tiles, store, "composite_tiles"),
+            chip_smoke.recording(mesh_tiles, store, "mesh_tiles")):
+        loss, (_, _, def_vs) = net.pc_branch_loss(vs, fids_t, gt, chip_smoke.RATIO, counts,
+                                                  body_mask=dev_b.get("body"))
         torch.autograd.grad(loss, vs)
+        with torch.no_grad():
+            net.find_and_sample_rays(fids_t, gt, chip_smoke.RATIO, net.mesh.garment_vs,
+                                     net.mesh.garment_fs, def_vs=[d.detach() for d in def_vs],
+                                     generator=gen)
     mask = tuple(a.detach() if torch.is_tensor(a) else a for a in store["composite_tiles"])
     g_mask = store["composite_tiles.grad"].contiguous()
+    seed_mesh = store["mesh_tiles"]
+    body = chip_smoke.body_zbuffer_args(net, fids_t, dev)
 
     for root, other in others.items():
+        compare_mesh(f"{root}: seeding z-buffer of a batch, 540², cap 512", seed_mesh, other)
+        compare_mesh(f"{root}: sphere 1080², cap 512", sphere_mesh, other)
+        compare_mesh(f"{root}: body z-buffer, 270², cap 512", body, other)
         compare(f"{root}: sphere 1080², cap 768", sphere, g_sphere, False, other)
         compare(f"{root}: mask composite of a training batch, 540², cap 1536", mask, g_mask,
                 False, other)

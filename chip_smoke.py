@@ -8,9 +8,10 @@ Phases, one printed line each (or more):
    memory and spills for each kernel;
 2. each kernel against its plain PyTorch version on the card, at the
    main path's shapes (1080², tile 32, cap 512 for the mesh z-buffer,
-   cap 768 and one channel for the point composite), with both times,
-   the work behind the kernel's bound (Σcnt, and the covered or live
-   (pixel, candidate) pairs) and the bound;
+   which must give the same bits; cap 768 and one channel for the point
+   composite), with both times, the work behind the kernel's bound (Σcnt,
+   and the covered or live (pixel, candidate) pairs), the bound and, for
+   the mesh z-buffer, the faces a warp lists per 8×4 sub-tile (mean, max);
 3. generate a synthetic-tube scene on the card: 32 frames at 1080² (more
    than the DCT prior's window of 30), skinning field (129, 225, 65);
 4. build the network on it at the flagship widths (SDF 8×512 + 256
@@ -25,7 +26,9 @@ Phases, one printed line each (or more):
 8. each kernel against its plain version on the very arguments the main
    path gave it in phase 7 (3 frames at 540², tile 32; cap 512 for the
    seeding z-buffer, cap 1536 for the mask composite), with both times,
-   the work and the bound as in phase 2;
+   the work and the bound as in phase 2; then (8b) the mesh z-buffer at
+   the shape of the ① body z-buffer: the synthetic body posed to the
+   same 3 frames, 270², tile 32, cap 512;
 9. the composite's backward (K3) against its plain version on the 1080²
    sphere of phase 2 with a seeded upstream gradient, cap 768, one and
    two channels, with and without the feature gradient, with the work
@@ -197,22 +200,42 @@ def sphere_screen_mesh(dev):
     return scr, torch.as_tensor(f, device=dev)
 
 
+def warp_lists(args) -> tuple:
+    """(mean, max) of the faces a warp of K1 lists for one 8×4 sub-tile on
+    ``args`` (mesh_tiles' arguments), from the cull's plain model
+    ``subtile_keep_faces``; the mean over the sub-tiles of tiles with
+    candidates."""
+    import torch
+
+    from recmv_tpu_torch.ops.mesh_raster import subtile_keep_faces
+
+    prm, _, cnt, Wt, tile = args
+    with torch.no_grad():
+        live = torch.arange(prm.shape[3], device=prm.device) < cnt[..., None]
+        listed = (subtile_keep_faces(prm, Wt, tile) & live[:, :, None, :]).sum(-1)
+        busy = (cnt > 0)[..., None].expand_as(listed)
+        return listed[busy].float().mean().item(), int(listed.max())
+
+
 def compare_mesh_tiles(tag: str, args, min_cover: float) -> dict:
     """K1 against its plain version on ``args`` (mesh_tiles' arguments):
-    face ids equal except at ≤ 1e-4 of pixels (ties on shared edges), zbuf
-    and barycentrics within 1e-5 where the ids agree; both times."""
+    the same bits in zbuf, face ids and barycentrics; both times, the
+    per-warp list lengths and the bound."""
     import torch
 
     from recmv_tpu_torch.ops.mesh_raster import _mesh_tiles_torch, mesh_tiles
 
-    got, want = mesh_tiles(*args), _mesh_tiles_torch(*args)
-    torch.cuda.synchronize()
-    same = got[1] == want[1]
-    mismatch = (~same).float().mean().item()
-    z_err = (got[0] - want[0])[same].abs().max().item()
-    b_err = (got[2] - want[2]).movedim(2, -1)[same].abs().max().item()
-    covered = (want[1] >= 0).float().mean().item()
-    ms, plain_ms = cuda_ms(lambda: mesh_tiles(*args), 20), cuda_ms(lambda: _mesh_tiles_torch(*args), 3)
+    with torch.no_grad():
+        got, want = mesh_tiles(*args), _mesh_tiles_torch(*args)
+        torch.cuda.synchronize()
+        same = all(torch.equal(a, b) for a, b in zip(got, want))
+        mismatch = (got[1] != want[1]).float().mean().item()
+        z_err = (got[0] - want[0]).abs().max().item()
+        b_err = (got[2] - want[2]).abs().max().item()
+        covered = (want[1] >= 0).float().mean().item()
+        ms = cuda_ms(lambda: mesh_tiles(*args), 20)
+        plain_ms = cuda_ms(lambda: _mesh_tiles_torch(*args), 3)
+        list_mean, list_max = warp_lists(args)
     # bytes: the listed faces' 12 coefficients and id, the counts, zbuf,
     # face and 3 barycentrics per pixel; operations: 22 per covered pair
     # (3 edge functions, inverse depths, reciprocal, barycentrics, compare)
@@ -222,11 +245,40 @@ def compare_mesh_tiles(tag: str, args, min_cover: float) -> dict:
     b = bound(4.0 * (13 * sum_cnt + B * T + 5 * B * T * npix), 22.0 * pairs)
     log(f"[{tag}] mesh_tiles: frames {B} tiles {T} cap {args[0].shape[3]} max count "
         f"{int(args[2].max())} sum count {sum_cnt} covered pairs {pairs} covered {covered:.4f} "
-        f"face-id mismatch {mismatch:.2e} zbuf err {z_err:.3e} bary err {b_err:.3e} kernel "
-        f"{ms:.4f} ms plain {plain_ms:.3f} ms bound {b['bound_ms']:.5f} ms ({b['bound_by']})")
-    if mismatch > 1e-4 or z_err > 1e-5 or b_err > 1e-5 or covered < min_cover:
+        f"faces listed per warp mean {list_mean:.2f} max {list_max} same bits {same} face-id "
+        f"mismatch {mismatch:.2e} zbuf err {z_err:.3e} bary err {b_err:.3e} kernel {ms:.4f} ms "
+        f"plain {plain_ms:.3f} ms bound {b['bound_ms']:.5f} ms ({b['bound_by']}, share "
+        f"{b['bound_ms'] / ms:.4f})")
+    if not same or covered < min_cover:
         raise AssertionError("mesh_tiles kernel disagrees with its plain version")
     return dict(max_abs_err=max(z_err, b_err), ms=ms, plain_ms=plain_ms, **b, library_ms=None)
+
+
+def body_zbuffer_args(net, frame_ids, dev):
+    """mesh_tiles' arguments of the ① body z-buffer (the JAX package's
+    ``_body_zbuf_image`` → ``core/visibility.mesh_zbuf_image``) for three
+    frames of the smoke scene: the synthetic body's canonical mesh from
+    ``initial_lbs_skinner`` at the scene's skinning resolution, posed by
+    ``skinner_apply`` to the frames' poses and translations, projected by
+    the scene camera at 1/4 resolution (270² of 1080²), tile 32, cap 512."""
+    import numpy as np
+    import torch
+
+    from recmv_tpu_torch.core.builder import apose_from_type
+    from recmv_tpu_torch.models.skinner import initial_lbs_skinner, skinner_apply
+    from recmv_tpu_torch.models.smpl import synthetic_body_model
+    from recmv_tpu_torch.ops.rasterizer import mesh_tile_inputs, screen_with_cam_z
+
+    s = 4
+    with torch.no_grad():
+        sk, body_vs, body_fs = initial_lbs_skinner(
+            synthetic_body_model(), torch.zeros(10, device=dev), apose_from_type(0), SKINNER_RES)
+        poses, trans = net.scene["poses"][frame_ids], net.scene["trans"][frame_ids]
+        posed = skinner_apply(sk, body_vs[None].expand(len(frame_ids), -1, -1), poses, trans)
+        scr = screen_with_cam_z(net._camera(), posed) * torch.tensor([1.0 / s, 1.0 / s, 1.0],
+                                                                     device=dev)
+        faces = torch.as_tensor(np.asarray(body_fs), device=dev)
+        return mesh_tile_inputs(scr, faces, (-(-IMAGE // s),) * 2, tile=32, cap=512) + (32,)
 
 
 def compare_composite_tiles(tag: str, args) -> dict:
@@ -519,9 +571,13 @@ def train(net, ds, batches, gen, store) -> dict:
 def branch_backward(net, ds, fids, dev) -> None:
     """Phase 11: the ② mask branch of a training batch, forward and
     backward, with the kernels and with the plain versions: the same loss,
-    and vertex and translator gradients within 1e-4 of the largest entry
-    (K2/K3 against their plain versions, and the gradient scatters'
-    atomics, sum in other orders)."""
+    vertex gradients within 1e-4 of the largest entry (K2/K3 against their
+    plain versions, and the gradient scatters' atomics, sum in other
+    orders) and translator gradients within 2e-2 of each leaf's largest
+    entry: the translator's backward rounds its gradients to bf16 at each
+    cast, as the JAX package's does, so a last-bit difference upstream can
+    move an entry by a few bf16 steps (2^-8 to 2^-7 of it each; 2.4e-3 to
+    4.6e-3 measured; 3.8e-6 when the translator ran in f32)."""
     import numpy as np
     import torch
 
@@ -543,12 +599,14 @@ def branch_backward(net, ds, fids, dev) -> None:
         runs.append((loss.item(), grads))
     torch.cuda.synchronize()
     (l_k, g_k), (l_p, g_p) = runs
-    errs = [((a - b).abs().max().item(), b.abs().max().item()) for a, b in zip(g_k, g_p)]
-    worst = max(e / max(m, 1e-30) for e, m in errs)
+    rel = [((a - b).abs().max() / b.abs().max().clamp(min=1e-30)).item()
+           for a, b in zip(g_k, g_p)]
+    G = len(net.mesh.garment_vs)
+    v_max = min(b.abs().max().item() for b in g_p[:G])
     log(f"[11] mask branch forward + backward with plain versions: loss {l_k:.6f} vs {l_p:.6f}, "
-        f"vertex grad max abs err {errs[0][0]:.3e} (max {errs[0][1]:.3e}), translator grads worst "
-        f"relative err {worst:.3e}")
-    if abs(l_k - l_p) > 1e-5 or worst > 1e-4 or errs[0][1] <= 0.0:
+        f"vertex grads worst relative err {max(rel[:G]):.3e} (smallest max {v_max:.3e}), "
+        f"translator grads worst relative err {max(rel[G:]):.3e}")
+    if abs(l_k - l_p) > 1e-5 or max(rel[:G]) > 1e-4 or max(rel[G:]) > 2e-2 or v_max <= 0.0:
         raise AssertionError("the mask branch's gradients differ between kernels and plain versions")
 
 
@@ -640,6 +698,8 @@ def main() -> int:
     # main path gave it in phase 7, with both times
     kres = {"mesh_tiles": compare_mesh_tiles("8", main_args["mesh_tiles"], min_cover=0.01),
             "composite_tiles": compare_composite_tiles("8", main_args["composite_tiles"])}
+    # phase 8b: K1 at the shape of the ① body z-buffer
+    compare_mesh_tiles("8b", body_zbuffer_args(net, fids_t, dev), min_cover=0.01)
 
     # phases 10-12: training
     train_args = {}

@@ -363,7 +363,9 @@ class GarmentOptimNetwork:
             if need_cons:
                 c = float(self.conf.get_float("pc_weight.def_consistent.c", 0.01))
                 off2 = torch.sum((def_vs[gi] - lbs_vs[gi]) ** 2, -1)
-                vmask = valid_sections[gi][None, :].expand_as(off2)
+                # a (1, cap) mask as in the JAX package: the sum runs over
+                # the batch's frames, the count over one frame's live verts
+                vmask = valid_sections[gi][None, :]
                 if c > 0:
                     cons = L.masked_mean(gm_robust_error(off2, c), vmask)
                 else:
@@ -408,7 +410,7 @@ class GarmentOptimNetwork:
                 u = uniforms[gi].to(self.device)
             else:
                 u = torch.rand(flat.shape, generator=generator,
-                               device=generator.device if generator is not None else "cpu"
+                               device=generator.device if generator is not None else self.device
                                ).to(self.device)
             scores = torch.where(flat, u, -1.0)
             k = min(budget, flat.shape[0])
@@ -542,7 +544,8 @@ class GarmentOptimNetwork:
         for gi, gname in enumerate(self.statics.garment_names):
             vs = garment_vs_t[gi].detach()
             valid = torch.arange(vs.shape[0], device=self.device) < counts[gi]
-            sdfv = sdf_value(self.params["garment_sdfs"][gi], vs, r["sdfRatio"])
+            sdfv = sdf_value(self.params["garment_sdfs"][gi], vs, r["sdfRatio"],
+                             compute_dtype=torch.bfloat16)
             s_loss = L.sdf_shrink_loss(sdfv, self.sdf_shrink, valid)
             info[f"pc_{gname}_loss_sdf"] = s_loss
             total = total + s_loss * pc_w

@@ -14,6 +14,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from .. import resolve_device
 from ..ops.math3d import quat2mat
 
 
@@ -31,7 +32,10 @@ class Camera:
 
 
 def make_camera(camera_params: dict, image_size, device=None) -> Camera:
-    """From the dataset's camera parameter dict."""
+    """From the dataset's camera parameter dict, on ``device`` (the CUDA
+    card when none is given)."""
+    device = resolve_device(device)
+
     def t(k, n):
         return torch.as_tensor(np.asarray(camera_params[k], np.float32),
                                device=device).reshape(n)

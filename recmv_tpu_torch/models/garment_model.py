@@ -14,6 +14,7 @@ from dataclasses import dataclass
 import torch
 import torch.nn as nn
 
+from .. import resolve_device
 from .camera import Camera
 from .render_net import init_render_net
 from .sdf import init_sdf_net
@@ -34,7 +35,9 @@ class ModelStatics:
 def init_model(gen: torch.Generator, conf, garment_names, skinner: SkinnerParams,
                image_size, device=None):
     """Build (params, statics) from a HOCON config; ``gen`` draws the
-    initial weights on the CPU, which then move to ``device``."""
+    initial weights on the CPU, which then move to ``device`` (the CUDA
+    card when none is given)."""
+    device = resolve_device(device)
     sdf_multires = conf.get_int("sdf_net.multires")
     g_multires = conf.get_int("garment_sdf_net.multires")
     condlen_render = conf.get_int("render_net.condlen")

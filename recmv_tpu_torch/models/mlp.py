@@ -5,6 +5,13 @@ with β = 100.
 A layer keeps the JAX parameter names — ``W, b`` for a plain layer,
 ``v, g, b`` for a weight-normalized one with w = g · v / ‖v‖ — but stores
 matrices in torch's (out, in) layout; ``bridge.py`` transposes.
+
+``Linear(x, compute_dtype=torch.bfloat16)`` is the JAX ``linear_apply``
+with that ``compute_dtype``: bf16 operands, f32 accumulation, f32 result,
+then the f32 bias. It runs as the f32 product of the bf16-rounded
+operands, which holds the same exact products (a product of two bf16
+numbers fits in f32) and has a double backward; autograd rounds the
+gradients at the two casts as JAX's transposes of ``astype`` do.
 """
 
 from __future__ import annotations
@@ -35,8 +42,12 @@ class Linear(nn.Module):
             return self.v * (self.g / norm)[:, None]
         return self.W
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.linear(x, self.weight(), self.b)
+    def forward(self, x: torch.Tensor, compute_dtype=None) -> torch.Tensor:
+        if compute_dtype is None:
+            return F.linear(x, self.weight(), self.b)
+        # the f32 product of the operands rounded to compute_dtype
+        return F.linear(x.to(compute_dtype).float(),
+                        self.weight().to(compute_dtype).float()) + self.b
 
 
 def torch_linear_init(gen: torch.Generator, d_in: int, d_out: int):

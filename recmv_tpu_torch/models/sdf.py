@@ -57,24 +57,36 @@ def init_sdf_net(gen: torch.Generator, multires: int = 6, bias: float = 0.6,
     return SdfNet(layers, multires, skip_in)
 
 
-def sdf_apply(net: SdfNet, pts: torch.Tensor, ratio=None):
+def sdf_apply(net: SdfNet, pts: torch.Tensor, ratio=None, compute_dtype=None):
     """pts (..., 3) → (sdf (...,), rendcond (..., F)). ``ratio`` is the PE
-    annealing ratio (number, tensor, or the dict form {'sdfRatio': r})."""
+    annealing ratio (number, tensor, or the dict form {'sdfRatio': r}).
+
+    ``compute_dtype=torch.bfloat16`` is the JAX package's bulk-loss mode
+    (the pc-sdf term): bf16 operands with f32 accumulation in every layer,
+    hidden activations stored in bf16, the skip concatenation divided by
+    √2 in bf16 (by the bf16 value of √2, as JAX's weakly typed constant),
+    and an f32 output. The solver, eikonal and render paths stay f32."""
     if isinstance(ratio, dict):
         ratio = ratio.get("sdfRatio")
     x = embed_with_ratio(net.embedder, pts, ratio)
     inp = x
     for l, lin in enumerate(net.lins):
         if l in net.skip_in:
-            x = torch.cat([x, inp], dim=-1) / math.sqrt(2.0)
-        x = lin(x)
+            if compute_dtype is None:
+                x = torch.cat([x, inp], dim=-1) / math.sqrt(2.0)
+            else:
+                sqrt2 = float(torch.tensor(math.sqrt(2.0)).to(compute_dtype))
+                x = torch.cat([x, inp.to(compute_dtype)], dim=-1) / sqrt2
+        x = lin(x, compute_dtype)
         if l < net.n_layers - 2:
             x = softplus_beta(x, 100.0)
+            if compute_dtype is not None:
+                x = x.to(compute_dtype)
     return x[..., 0], x[..., 1:]
 
 
-def sdf_value(net: SdfNet, pts: torch.Tensor, ratio=None) -> torch.Tensor:
-    return sdf_apply(net, pts, ratio)[0]
+def sdf_value(net: SdfNet, pts: torch.Tensor, ratio=None, compute_dtype=None) -> torch.Tensor:
+    return sdf_apply(net, pts, ratio, compute_dtype)[0]
 
 
 def _point_input(pts: torch.Tensor, create_graph: bool) -> torch.Tensor:

@@ -2,8 +2,9 @@
 ``recmv_tpu/models/translator.py``): a 5-layer ReLU MLP mapping
 [PE(xyz), per-frame latent] → 3-d offset, last layer N(0, 1e-3).
 
-The JAX package runs the hidden layers with bf16 operands (a TPU
-bandwidth choice); the port runs them in f32.
+As in the JAX package, all five layers take bf16 operands with f32
+accumulation and an f32 bias (``mlp.Linear`` with ``compute_dtype``), and
+the hidden activations are stored in bf16 after the ReLU.
 """
 
 from __future__ import annotations
@@ -44,9 +45,9 @@ def translator_offset(net: Translator, ps: torch.Tensor, cond: torch.Tensor, rat
         ratio = ratio.get("deformerRatio")
     x = torch.cat([embed_with_ratio(net.embedder, ps, ratio), cond], dim=-1)
     for l, lin in enumerate(net.lins):
-        x = lin(x)
+        x = lin(x, compute_dtype=torch.bfloat16)
         if l < len(net.lins) - 1:
-            x = torch.relu(x)
+            x = torch.relu(x).to(torch.bfloat16)
     return x
 
 

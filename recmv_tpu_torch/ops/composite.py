@@ -25,11 +25,10 @@ import torch
 from torch.autograd.function import once_differentiable
 
 from .. import _build
-from .mesh_raster import tile_pixels
+from .mesh_raster import SUB_H, SUB_W, tile_pixels
 
 EPS = 1e-10
 MAX_C = 8
-SUB_W, SUB_H = 8, 4                 # a warp's sub-tile of pixels in K2 and K3
 CULL_LIMIT = 1.0 + 1.0 / 1024.0     # the kernels' cull threshold on d²_min / r²
 _CHUNK_ELEMS = 1 << 24
 

@@ -4,6 +4,11 @@
 ``mesh_tiles`` launches the CUDA kernel ``csrc/mesh_raster.cu`` on CUDA
 tensors and takes the plain PyTorch version ``_mesh_tiles_torch`` on CPU
 tensors; it counts its kernel launches in ``mesh_tiles.launches``.
+
+The kernel walks, per warp of an 8×4 pixel sub-tile, only the candidates
+an exact cull keeps (``csrc/mesh_raster.cu``); ``subtile_keep_faces`` is
+the cull's plain model, which the tests hold to it. ``_mesh_tiles_torch``
+stays the dense walk of every (pixel, candidate) pair.
 """
 
 from __future__ import annotations
@@ -13,6 +18,8 @@ import torch
 from .. import _build
 
 BIG = 3.0e38
+SUB_W, SUB_H = 8, 4         # a warp's sub-tile of pixels in K1, K2 and K3
+MAX_CAP = 65535             # the largest cap K1 takes
 _CHUNK_ELEMS = 1 << 24   # bound on (frames × tiles × cap × pixels) per step of the plain version
 
 
@@ -35,8 +42,33 @@ def _check(prm, fid, cnt, tile):
         raise TypeError("mesh_tiles takes prm float32, fid and cnt int32")
     if tile not in (8, 16, 32):
         raise ValueError(f"tile must be 8, 16 or 32, got {tile}")
+    if prm.device.type == "cuda" and cap > MAX_CAP:
+        raise ValueError(f"the mesh kernel takes caps up to {MAX_CAP}, got {cap}")
     if not (prm.device == fid.device == cnt.device):
         raise ValueError("mesh_tiles inputs must share one device")
+
+
+def subtile_keep_faces(prm, Wt: int, tile: int):
+    """Plain model of K1's cull (``may_cover`` in ``csrc/mesh_raster.cu``),
+    for the tests. Warp w of a tile owns the 8×4 pixel sub-tile at
+    ((w mod tile/8)·8, ⌊w / (tile/8)⌋·4) and keeps a candidate unless, for
+    some edge, the edge value at the box corner its signs pick (x0 + 7 when
+    b ≥ 0 else x0, y0 + 3 when a ≥ 0 else y0) is ≤ 0, in the kernel's
+    float32 operations and order. prm (B, T, 12, cap) → (B, T, tile²/32,
+    cap) bool, True where warp w lists the candidate."""
+    T = prm.shape[1]
+    per_row = tile // SUB_W
+    w = torch.arange(tile * tile // 32, device=prm.device)
+    t = torch.arange(T, device=prm.device)[:, None]
+    x0 = ((t % Wt) * tile + (w % per_row) * SUB_W).to(torch.float32)[None, :, :, None]
+    y0 = ((t // Wt) * tile + (w // per_row) * SUB_H).to(torch.float32)[None, :, :, None]
+    x1, y1 = x0 + (SUB_W - 1), y0 + (SUB_H - 1)
+    keep = None
+    for e in range(3):
+        a, b, c = (prm[:, :, 3 * e + i, None, :] for i in range(3))     # (B, T, 1, cap)
+        w_c = a * torch.where(a >= 0.0, y1, y0) + b * torch.where(b >= 0.0, x1, x0) + c
+        keep = ~(w_c <= 0.0) if keep is None else keep & ~(w_c <= 0.0)
+    return keep
 
 
 def _mesh_tiles_torch(prm, fid, cnt, Wt: int, tile: int):

@@ -11,11 +11,17 @@ into the port (``draws``).
     autograd of the plain forward; (c) the differentiable point gradient,
     Jacobian and sampler, the implicit adjoint and each new loss term
     against their JAX counterparts; (d) on a 32-frame 48 px
-    synthetic-tube scene (translator's last layer zeroed, pc-sdf weighed
-    0) the ② and ③ losses and their per-leaf gradients against
-    ``jax.value_and_grad`` of the JAX methods, and the pc-sdf term alone;
-    (e) one whole ``train_step`` in each package from one state; (f) the
-    DCT windows on that scene.
+    synthetic-tube scene (pc-sdf weighed 0) the ② and ③ losses and their
+    per-leaf gradients against ``jax.value_and_grad`` of the JAX methods,
+    and the pc-sdf term alone; (e) one whole ``train_step`` in each
+    package from one state; (f) the DCT windows on that scene.
+
+Both packages run the translator and the pc-sdf values with bf16
+operands and f32 accumulation. Two bf16 evaluations still differ: they
+round f32 partial sums that were added in another order, and one flipped
+bf16 rounding moves the next layer's sums by a whole bf16 step, which
+flips more (measured on the 8×512 SDF: 7e-6 of the layer-1 inputs differ,
+16% of the layer-8 inputs; per-point SDF values by up to 1e-3).
 
 Tolerances (float32) and why:
 - composite gradients: 1e-5 of the largest entry (sums over pixels and
@@ -23,17 +29,27 @@ Tolerances (float32) and why:
 - model-level gradients (c): 1e-4 absolute and relative, as
   ``tests/test_torch_models.py``;
 - (d)/(e): info scalars within 1e-4 relative, gradient norms 1e-3; leaf
-  gradients within 1e-4 of each leaf's norm, the translator's 5e-2 (the
-  JAX package runs its hidden layers in bf16, the port in f32; the last
-  layer is zeroed so the bf16 error stays off the other leaves); the
-  pc-sdf term, which the JAX package evaluates in bf16, is weighed 0 in
-  the branch comparisons, its info value held to 5e-4 absolute and the
-  term tested apart (``test_pc_sdf_term_matches_jax_bf16``). On the CPU
+  gradients within 1e-4 of each leaf's norm, 1e-2 for those that pass the
+  bf16 translator (its weights and the deformer latents; measured up to
+  3.7e-3). The pc-sdf term is weighed 0 in the branch comparisons: at its
+  weight of 60 the bf16 differences above reach the garment SDF's
+  gradients (9% of a leaf's norm measured). Its info value is held to
+  5e-6 absolute (measured 1.3e-6 of ~2e-3; the port in f32 was 1.3e-4
+  off) and the term is tested apart (``test_pc_sdf_term_matches_jax_bf16``):
+  value 5e-6, each gradient 0.2 of its norm (measured up to 0.12: the
+  gradient of |sdf + shrink| flips sign on the vertices whose two bf16
+  values straddle −shrink), and 5e-3 with the JAX signs (measured up to
+  1.8e-3); its f32 case 1e-6 and 1e-4. On the CPU
   the JAX package composites the masks with its XLA subtile backend, the
   port with the Pallas semantics (same function, sums in another order).
-  Adam's first step is nearly −lr·sign(g), so updated parameters are
-  compared on the entries whose gradient is above 1e-3 of the leaf's
-  largest, where the sign is stable, to 2e-2 of the learning rate; SGD-
+  Adam's first step is lr·g/(|g| + 1e-8), nearly −lr·sign(g), so updated
+  parameters are compared on the entries whose gradient is above 1e-3 of
+  the leaf's largest, where the sign is stable, and whose JAX update is at
+  least lr/2, to 2e-2 of the learning rate. (The step seeds and solves its
+  own rays, so its gradient is not the one of (d); where it is within a
+  few eps of 0 the update moves by a share of lr for a difference of
+  1e-9, which the bf16 translator's differences reach through the
+  deformer: 2 of 256,825 entries of a garment SDF layer measured.) SGD-
   updated vertices to 1e-3 of the update's norm.
 """
 
@@ -462,9 +478,6 @@ def _build_pair(root, jdir):
                           resolutions=pyr, skinner_res=(17, 25, 9),
                           train_cfg=_train_cfg(TrainConfig), device="cpu")
     net_t.conf = _NoPcSdfConf(net_t.conf)
-    tr = net_j.params["translator"]
-    last = f"lin{len(tr) - 1}"
-    tr[last] = {k: jnp.zeros_like(v) for k, v in tr[last].items()}
     gsdf = net_j.params["garment_sdfs"][0]
     last = f"lin{len(gsdf) - 1}"
     gsdf[last] = dict(gsdf[last], b=gsdf[last]["b"].at[0].set(GARMENT_SDF_BIAS))
@@ -520,11 +533,12 @@ def _jax_leaf(tree, name):
 
 
 def _assert_grads_close(names, grads, tree):
-    """Per leaf: ‖g_port − g_jax‖ ≤ tol·‖g_jax‖ + 1e-6, tol 5e-2 for the
-    translator (bf16 hidden layers in the JAX package), else 1e-4."""
+    """Per leaf: ‖g_port − g_jax‖ ≤ tol·‖g_jax‖ + 1e-6, tol 1e-2 for the
+    leaves whose gradient passes the bf16 translator (its weights and the
+    deformer latents), else 1e-4."""
     for name, g in zip(names, grads):
         ref = _jax_leaf(tree, name)
-        tol = 5e-2 if name.startswith("translator") else 1e-4
+        tol = 1e-2 if name.startswith(("translator", "scene.conds.deformer")) else 1e-4
         err = np.linalg.norm(g.detach().numpy() - ref)
         assert err <= tol * np.linalg.norm(ref) + 1e-6, (name, err, np.linalg.norm(ref))
 
@@ -623,9 +637,9 @@ def branch_grads(nets):
 
 def _assert_info_close(info_t, info_j):
     """Every JAX info scalar in the port's, within the module's tolerances:
-    the pc-sdf terms (bf16 in the JAX package, values ~1e-3) within 5e-4
-    absolute, the gradient norms (translator gradients bf16) within 1e-3
-    relative, the rest within 1e-4 relative."""
+    the pc-sdf terms (bf16 in both packages, values ~2e-3) within 5e-6
+    absolute, the gradient norms within 1e-3 relative, the rest within
+    1e-4 relative."""
     for k, v in info_j.items():
         if k.startswith("t_"):
             continue
@@ -633,7 +647,7 @@ def _assert_info_close(info_t, info_j):
         rtol = 0.0 if bf16 else 1e-3 if k.startswith("gnorm") else 1e-4
         got = info_t[k].detach() if torch.is_tensor(info_t[k]) else info_t[k]
         np.testing.assert_allclose(float(got), float(v), rtol=rtol,
-                                   atol=5e-4 if bf16 else 1e-6, err_msg=k)
+                                   atol=5e-6 if bf16 else 1e-6, err_msg=k)
 
 
 def test_pc_branch_loss_and_gradients(branch_grads):
@@ -664,16 +678,15 @@ def test_main_loss_and_gradients(branch_grads):
     _assert_grads_close(names, g_t, _np_tree(gm_j))
 
 
-def test_pc_sdf_term_matches_jax_bf16(nets):
-    """The pc-sdf term, which the fixture's config weighs 0 so that the
-    branch comparisons stay in f32: |sdf(v) + shrink| over the live mesh
-    vertices. The JAX package evaluates the garment SDF in bf16 there
-    (``network.py`` main_loss), the port in f32. Against the same JAX
-    term in f32 the port is held to 1e-4 of each garment SDF leaf's
-    gradient norm; against the bf16 term the value to 5e-4 absolute and
-    each gradient to 0.2 of its norm: |sdf + shrink| is ~1e-3 on vertices
-    near the surface, where bf16 rounding (2^-8 of the activations) flips
-    the sign of d|·| on a share of the vertices (up to 0.12 measured)."""
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+def test_pc_sdf_term_matches_jax_bf16(nets, dtype):
+    """The pc-sdf term |sdf(v) + shrink| over the live mesh vertices, which
+    ``main_loss`` evaluates with the garment SDF in bf16 in both packages
+    (bf16 operands, f32 accumulation, bf16 hidden activations); its f32
+    case is the same term with every layer in f32. Value and each garment
+    SDF leaf's gradient against the JAX term of the same type, and in bf16
+    also the gradient taken with the JAX signs of sdf + shrink (tolerances
+    in the module docstring)."""
     import copy
 
     from recmv_tpu.core import losses as JL
@@ -687,21 +700,34 @@ def test_pc_sdf_term_matches_jax_bf16(nets):
     bridge.load_mlp(gsdf, _np_tree(prm_j))
     vs = np.asarray(net_j.mesh.garment_vs[0])
     valid = np.arange(vs.shape[0]) < net_j.mesh.garment_n[0]
+    j_dtype, t_dtype = {"f32": (None, None), "bf16": (jnp.bfloat16, torch.bfloat16)}[dtype]
 
-    def jloss(prm, dtype):
-        sdfv = jsv(prm, net_j.statics.garment_sdf, jnp.asarray(vs), 1.0, compute_dtype=dtype)
+    def jloss(prm):
+        sdfv = jsv(prm, net_j.statics.garment_sdf, jnp.asarray(vs), 1.0, compute_dtype=j_dtype)
         return JL.sdf_shrink_loss(sdfv, net_j.sdf_shrink, jnp.asarray(valid))
 
-    loss = TL.sdf_shrink_loss(sdf_value(gsdf, _t(vs), 1.0), net_t.sdf_shrink,
-                              torch.as_tensor(valid))
+    loss = TL.sdf_shrink_loss(sdf_value(gsdf, _t(vs), 1.0, compute_dtype=t_dtype),
+                              net_t.sdf_shrink, torch.as_tensor(valid))
     grads = _module_grads(gsdf, torch.autograd.grad(loss, list(gsdf.parameters())))
-    for dtype, v_tol, g_tol in ((None, 1e-6, GTOL), (jnp.bfloat16, 5e-4, 0.2)):
-        v_j, g_j = jax.value_and_grad(jloss)(prm_j, dtype)
-        np.testing.assert_allclose(float(loss.detach()), float(v_j), atol=v_tol, rtol=0)
-        for path, ref in jax.tree_util.tree_leaves_with_path(_np_tree(g_j)):
-            got = grads[path[0].key][path[1].key]
-            assert np.linalg.norm(ref) > 0
-            assert np.linalg.norm(got - ref) <= g_tol * np.linalg.norm(ref), (dtype, path)
+    v_j, g_j = jax.value_and_grad(jloss)(prm_j)
+    v_tol, g_tol = {"f32": (1e-6, GTOL), "bf16": (5e-6, 0.2)}[dtype]
+    np.testing.assert_allclose(float(loss.detach()), float(v_j), atol=v_tol, rtol=0)
+    refs = jax.tree_util.tree_leaves_with_path(_np_tree(g_j))
+    for path, ref in refs:
+        got = grads[path[0].key][path[1].key]
+        assert np.linalg.norm(ref) > 0
+        assert np.linalg.norm(got - ref) <= g_tol * np.linalg.norm(ref), (dtype, path)
+    if dtype == "bf16":
+        # the same gradient with the JAX signs of sdf + shrink: the port's
+        # bf16 backward alone
+        sdf_j = np.asarray(jsv(prm_j, net_j.statics.garment_sdf, jnp.asarray(vs), 1.0,
+                               compute_dtype=j_dtype))
+        sign = np.where(valid, np.sign(sdf_j + net_j.sdf_shrink), 0.0) / valid.sum()
+        lin = (sdf_value(gsdf, _t(vs), 1.0, compute_dtype=t_dtype) * _t(sign)).sum()
+        lin_grads = _module_grads(gsdf, torch.autograd.grad(lin, list(gsdf.parameters())))
+        for path, ref in refs:
+            got = lin_grads[path[0].key][path[1].key]
+            assert np.linalg.norm(got - ref) <= 5e-3 * np.linalg.norm(ref), path
 
 
 def test_dct_window_ids(branch_grads):
@@ -763,6 +789,9 @@ def test_train_step_matches_jax(nets, branch_grads):
             continue
         g = np.abs(_jax_leaf(tree_pc, name) + _jax_leaf(tree_m, name))
         big = g > 1e-3 * g.max() if g.max() > 0 else np.zeros_like(g, bool)
+        # and whose JAX update is at least lr/2, i.e. whose gradient in the
+        # step itself is well above Adam's eps
+        big &= np.abs(dj) > 0.5 * lr
         np.testing.assert_allclose(dt[big], dj[big], atol=2e-2 * lr, rtol=0, err_msg=name)
         moved += int(big.sum())
     assert moved > 1000
