@@ -13,7 +13,7 @@ kernels; both builds then run, in turns (other, this, this, other), on:
 - K1: the seeding z-buffer of a batch on the smoke scene of
   ``chip_smoke.py`` (its phase 8 arguments: 3 frames at 540², cap 512),
   the dense 1080² sphere of its phase 2 (cap 512) and the ① body z-buffer
-  of its phase 8b (3 frames at 270², cap 512);
+  of the same batch (``_body_zbuf_image``: 3 frames at 270², cap 512);
 - K2 and K3: the ② mask composite of a training batch (``pc_branch_loss``
   forward and backward on the smoke scene: 3 frames at 540², cap 1536,
   one channel, no feature gradient) and the dense 1080² sphere of
@@ -243,7 +243,10 @@ def main() -> int:
     mask = tuple(a.detach() if torch.is_tensor(a) else a for a in store["composite_tiles"])
     g_mask = store["composite_tiles.grad"].contiguous()
     seed_mesh = store["mesh_tiles"]
-    body = chip_smoke.body_zbuffer_args(net, fids_t, dev)
+    with chip_smoke.rasterizer_kernels(composite_tiles,
+                                       chip_smoke.recording(mesh_tiles, store, "mesh_tiles")):
+        net._body_zbuf_image(fids_t, net._camera())
+    body = store["mesh_tiles"]
 
     for root, other in others.items():
         compare_mesh(f"{root}: seeding z-buffer of a batch, 540², cap 512", seed_mesh, other)

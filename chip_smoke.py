@@ -16,7 +16,10 @@ Phases, one printed line each (or more):
    than the DCT prior's window of 30), skinning field (129, 225, 65);
 4. build the network on it at the flagship widths (SDF 8×512 + 256
    features, translator 4×512 with 128-d latents, render 4×512), the
-   coarse seg3d pyramid and the production caps;
+   coarse seg3d pyramid and the production caps; (4b) give it the scene's
+   feature curves: each curve its canonical boundary ring resampled to
+   200 points, through ``align_fl`` with t = 0, s = 1 (an exact fit, as
+   the initialization would hand it over);
 5. remesh (seg3d + host marching cubes);
 6. three forward steps over batches of 3 frames (mask branch, ray
    seeding, surface solve, IDR colour), with per-phase CUDA-event times
@@ -26,26 +29,43 @@ Phases, one printed line each (or more):
 8. each kernel against its plain version on the very arguments the main
    path gave it in phase 7 (3 frames at 540², tile 32; cap 512 for the
    seeding z-buffer, cap 1536 for the mask composite), with both times,
-   the work and the bound as in phase 2; then (8b) the mesh z-buffer at
-   the shape of the ① body z-buffer: the synthetic body posed to the
-   same 3 frames, 270², tile 32, cap 512;
+   the work and the bound as in phase 2;
 9. the composite's backward (K3) against its plain version on the 1080²
    sphere of phase 2 with a seeded upstream gradient, cap 768, one and
    two channels, with and without the feature gradient, with the work
    and the bound;
-10. six training steps (``train_step``) over batches of 3 frames, the
-    first one remeshing, with per-phase CUDA-event times (remesh, ② pc
-    forward + backward, vertex update, rays, solve, ③ main forward +
-    backward, global update), the first step reported apart; every info
-    scalar, gradient norm and parameter finite, rays converged, the
-    trained leaves moved and the frozen ones (shape, camera quat) not,
-    the launch counts of all three kernels, peak device memory;
+10. six training steps (``train_step``, the whole fused step: ① curves,
+    ② mask, ③ main) over batches of 3 frames, the first one remeshing,
+    with per-phase CUDA-event times (remesh, batch upload, ① fl forward +
+    backward + AdamW, ② pc forward + backward, vertex update, rays,
+    solve, ③ main forward + backward, global update), the first step
+    reported apart; every info scalar, gradient norm and parameter
+    finite, ①'s gradient norm above 0, three mesh z-buffer launches a step
+    (① body and garment z-buffers, seeding), rays converged, the trained
+    leaves and the curves moved and the frozen ones (shape, camera quat)
+    not; after ① of the first step no global leaf, gradient or vertex has
+    changed; the launch counts of all three kernels, peak device memory;
+    (8b) the mesh z-buffer against its plain version on the arguments of
+    the last step's ① body and garment z-buffers (3 frames at 270² of
+    1080², tile 32, cap 512), as in phase 8;
 11. the ② branch of a training batch, forward and backward, once with
     the kernels and once with the plain versions: same loss, vertex and
     translator gradients;
 12. K3 against its plain version on the arguments the training step gave
     it (3 frames at 540², cap 1536, one channel, no feature gradient),
-    with both times, the work and the bound.
+    with both times, the work and the bound;
+13. ① of a training batch, forward and backward to the curves, once with
+    the kernels and once with the plain versions: the same visibility
+    masks, the same loss, the same curve gradients;
+14. the synthetic-two scene (upper tube and skirt, ``smoke_two.conf``,
+    ``zbuff_and``) at the flagship widths, 8 frames at 540², with its
+    three feature curves: three training steps, each with a finite
+    curve-aware term, five mesh z-buffer launches (① body, two ①
+    garment, two seeding) and the point composite over two channels; then
+    each kernel against its plain version on the arguments of the last
+    step: the mesh z-buffer on all five z-buffers (135² and 270², tile 32,
+    cap 512), the composite forward and backward on the two-channel mask
+    render, as in phases 8 and 12.
 
 A kernel's bound is the larger of the bytes it must move (each input
 read once: the listed candidates, the counts, the upstream gradient;
@@ -58,7 +78,6 @@ power limit, and last ``{"ok": true, "device": {...}}``. Any failure
 raises and the exit code is not 0. Without CUDA it exits with 2 before
 any work.
 """
-
 from __future__ import annotations
 
 import contextlib
@@ -75,6 +94,7 @@ RATIO = {"sdfRatio": 1.0, "deformerRatio": 0.5, "renderRatio": 1.0}
 IMAGE = 1080
 FRAMES = 32
 TRAIN_STEPS = 6
+TWO_IMAGE, TWO_FRAMES = 540, 8  # the two-garment phase's scene
 SKINNER_RES = (129, 225, 65)
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory, published peak
 FP32_FLOP_PER_S = 67e12        # H100 SXM float32 outside the tensor cores, published peak
@@ -254,33 +274,6 @@ def compare_mesh_tiles(tag: str, args, min_cover: float) -> dict:
     return dict(max_abs_err=max(z_err, b_err), ms=ms, plain_ms=plain_ms, **b, library_ms=None)
 
 
-def body_zbuffer_args(net, frame_ids, dev):
-    """mesh_tiles' arguments of the ① body z-buffer (the JAX package's
-    ``_body_zbuf_image`` → ``core/visibility.mesh_zbuf_image``) for three
-    frames of the smoke scene: the synthetic body's canonical mesh from
-    ``initial_lbs_skinner`` at the scene's skinning resolution, posed by
-    ``skinner_apply`` to the frames' poses and translations, projected by
-    the scene camera at 1/4 resolution (270² of 1080²), tile 32, cap 512."""
-    import numpy as np
-    import torch
-
-    from recmv_tpu_torch.core.builder import apose_from_type
-    from recmv_tpu_torch.models.skinner import initial_lbs_skinner, skinner_apply
-    from recmv_tpu_torch.models.smpl import synthetic_body_model
-    from recmv_tpu_torch.ops.rasterizer import mesh_tile_inputs, screen_with_cam_z
-
-    s = 4
-    with torch.no_grad():
-        sk, body_vs, body_fs = initial_lbs_skinner(
-            synthetic_body_model(), torch.zeros(10, device=dev), apose_from_type(0), SKINNER_RES)
-        poses, trans = net.scene["poses"][frame_ids], net.scene["trans"][frame_ids]
-        posed = skinner_apply(sk, body_vs[None].expand(len(frame_ids), -1, -1), poses, trans)
-        scr = screen_with_cam_z(net._camera(), posed) * torch.tensor([1.0 / s, 1.0 / s, 1.0],
-                                                                     device=dev)
-        faces = torch.as_tensor(np.asarray(body_fs), device=dev)
-        return mesh_tile_inputs(scr, faces, (-(-IMAGE // s),) * 2, tile=32, cap=512) + (32,)
-
-
 def compare_composite_tiles(tag: str, args) -> dict:
     """K2 against its plain version on ``args`` (composite_tiles'
     arguments): within 1e-5 absolute; both times."""
@@ -288,11 +281,12 @@ def compare_composite_tiles(tag: str, args) -> dict:
 
     from recmv_tpu_torch.ops.composite import _composite_tiles_torch, composite_tiles
 
-    got, want = composite_tiles(*args), _composite_tiles_torch(*args)
-    torch.cuda.synchronize()
-    err = (got - want).abs().max().item()
-    ms, plain_ms = cuda_ms(lambda: composite_tiles(*args), 20), cuda_ms(
-        lambda: _composite_tiles_torch(*args), 3)
+    with torch.no_grad():      # the recorded arguments may carry a graph
+        got, want = composite_tiles(*args), _composite_tiles_torch(*args)
+        torch.cuda.synchronize()
+        err = (got - want).abs().max().item()
+        ms, plain_ms = cuda_ms(lambda: composite_tiles(*args), 20), cuda_ms(
+            lambda: _composite_tiles_torch(*args), 3)
     # bytes: the listed candidates (cx, cy, val, feat[C]), the counts and
     # the output; operations: 15 + 2C per live pair (weight, chain, sums)
     sum_cnt, live = composite_work(args)
@@ -409,49 +403,103 @@ def recording(fn, store: dict, name: str):
     return call
 
 
-def build_smoke_net(dev, work: str):
-    """Phases 3-5: generate the scene, build the network, remesh.
-    Returns (dataset, sampler, net)."""
+def recording_calls(fn, calls: list):
+    """``fn`` that also appends the arguments of each call to ``calls``."""
+
+    def call(*args):
+        calls.append(args)
+        return fn(*args)
+
+    return call
+
+
+@contextlib.contextmanager
+def recording_masks(masks: list):
+    """Append every visibility mask ``fl_branch_loss`` takes to ``masks``."""
+    from recmv_tpu_torch.core import visibility
+
+    combine = visibility.combine_visibility
+
+    def call(*args):
+        out = combine(*args)
+        masks.append(out.clone())
+        return out
+
+    visibility.combine_visibility = call
+    try:
+        yield
+    finally:
+        visibility.combine_visibility = combine
+
+
+def scene_curves(garment_type: str) -> tuple:
+    """``align_fl``'s arguments for a synthetic scene as an exact fit gives
+    them: each curve of ``SCENE_CURVES`` its canonical boundary ring
+    resampled to 200 points, aligned = template, t = 0, s = 1."""
     import numpy as np
+
+    from recmv_tpu_torch.data.synthetic import SCENE_CURVES, boundary_ring
+    from recmv_tpu_torch.geometry.polygons import uniform_sample_3d
+
+    rings = {name: uniform_sample_3d(boundary_ring(y, offset=off), 200).astype(np.float32)
+             for name, y, off in SCENE_CURVES[garment_type]}
+    rigid = {name: (np.zeros(3, np.float32), np.float32(1.0)) for name in rings}
+    return rings, rings, rigid
+
+
+def build_smoke_net(dev, work: str, garment_type: str = "synthetic-tube", frames=None,
+                    image=None, phase: str | None = None):
+    """Phases 3-5: generate the scene (``FRAMES`` frames at ``IMAGE``²
+    unless given), build the network and give it the scene's curves (4b),
+    remesh; the lines are labelled ``phase`` where given. Returns
+    (dataset, sampler, net)."""
     import torch
 
     from recmv_tpu_torch.config import ConfigFactory
-    from recmv_tpu_torch.core.builder import build_opt_net, resolution_pyramids
+    from recmv_tpu_torch.config.constants import TEMPLATE_GARMENT
+    from recmv_tpu_torch.core.builder import build_opt_net, resolution_pyramids, scene_caps
     from recmv_tpu_torch.core.network import TrainConfig
     from recmv_tpu_torch.data.dataset import get_dataset_and_loader
     from recmv_tpu_torch.data.synthetic import generate_scene, shrink_garment_init
 
+    frames, image = frames or FRAMES, image or IMAGE
+    p3, p4, p5 = (phase,) * 3 if phase else ("3", "4", "5")
     scene = osp.join(work, "scene")
     t0 = time.time()
-    generate_scene(scene, n_frames=FRAMES, image_size=IMAGE, skinner_res=SKINNER_RES,
-                   device=dev)
-    log(f"[3] generated {FRAMES} frames at {IMAGE}² in {time.time() - t0:.1f} s")
+    generate_scene(scene, n_frames=frames, image_size=image, skinner_res=SKINNER_RES,
+                   garment_type=garment_type, device=dev)
+    log(f"[{p3}] generated {garment_type}: {frames} frames at {image}² in "
+        f"{time.time() - t0:.1f} s")
 
     t0 = time.time()
-    conf = ConfigFactory.parse_file(osp.join(ROOT, "configs", "synthetic", "smoke.conf"))
-    ds, sampler = get_dataset_and_loader(scene, {"deformer": 256, "render": 256}, 3,
-                                         shuffle=True, garment_type="synthetic-tube",
+    conf_name = {"synthetic-tube": "smoke.conf", "synthetic-two": "smoke_two.conf"}[garment_type]
+    conf = ConfigFactory.parse_file(osp.join(ROOT, "configs", "synthetic", conf_name))
+    G = len(TEMPLATE_GARMENT[garment_type])
+    ds, sampler = get_dataset_and_loader(scene, {"deformer": 128 * (1 + G), "render": 256}, 3,
+                                         shuffle=True, garment_type=garment_type,
                                          data_type="synthe")
     pyr = resolution_pyramids("coarse")
-    Wg, Hg, Dg = pyr[-1]
-    cap_v = 1 << int(np.ceil(np.log2(8 * max(Wg * Hg, Wg * Dg, Hg * Dg))))
-    cfg = TrainConfig(mc_capacity_v=cap_v, mc_capacity_f=2 * cap_v,
-                      mask_render_downscale=2, seed_downscale=2)
+    cfg = TrainConfig(**scene_caps((image, image), pyr))      # production caps, not the conf's
     net = build_opt_net(conf, ds, osp.join(work, "result"), resolutions=pyr,
                         skinner_res=SKINNER_RES, train_cfg=cfg, device=dev)
     shrink_garment_init(net.params)
     n_par = sum(p.numel() for k in ("sdf", "garment_sdfs", "translator", "render")
                 for p in net.params[k].parameters())
-    log(f"[4] built the network in {time.time() - t0:.1f} s: {n_par} parameters, "
-        f"pyramid {pyr[0]} -> {pyr[-1]}, caps mesh {cfg.raster_cap_mesh} points "
-        f"{cfg.raster_cap_points} tile {cfg.raster_tile}, sample_pix {cfg.sample_pix}, "
-        f"solver {cfg.solver_times} steps, downscale mask {cfg.mask_render_downscale} "
-        f"seed {cfg.seed_downscale}")
+    log(f"[{p4}] built the network in {time.time() - t0:.1f} s: {n_par} parameters, "
+        f"garments {list(net.statics.garment_names)}, pyramid {pyr[0]} -> {pyr[-1]}, caps "
+        f"mesh {cfg.raster_cap_mesh} points {cfg.raster_cap_points} tile {cfg.raster_tile}, "
+        f"sample_pix {cfg.sample_pix}, solver {cfg.solver_times} steps, downscale mask "
+        f"{cfg.mask_render_downscale} seed {cfg.seed_downscale} z-buffer {cfg.zbuf_downscale}, "
+        f"fl_visible_method {net.conf.get_string('fl_visible_method')}")
+    _, statics = net.align_fl(*scene_curves(garment_type))
+    log(f"[{p4}b] curves {list(statics.fl_names)}, {statics.v_dirs.shape[1]} points each, "
+        f"radii {[round(float(r), 4) for r in statics.init_scale.mean((1, 2))]}; body mesh "
+        f"{net.tmp_body_vs.shape[0]} verts {net.tmp_body_fs.shape[0]} faces")
 
     t0 = time.time()
     net.marching_cube_update(RATIO)
     torch.cuda.synchronize()
-    log(f"[5] remesh in {time.time() - t0:.1f} s: garment verts {net.mesh.garment_n} "
+    log(f"[{p5}] remesh in {time.time() - t0:.1f} s: garment verts {net.mesh.garment_n} "
         f"faces {net.mesh.garment_fn} (buffers {[v.shape[0] for v in net.mesh.garment_vs]}), "
         f"body verts {net.mesh.body_n}")
     return ds, sampler, net
@@ -479,9 +527,10 @@ def timed_step(net, ds, fids, gen):
     return info, solved, wall, phase_ms
 
 
-def timed_train_step(net, ds, fids, gen):
+def timed_train_step(net, ds, fids, gen, on_phase=None):
     """One training step with a CUDA event after each phase → (loss,
-    info, wall seconds, {phase: ms})."""
+    info, wall seconds, {phase: ms}); ``on_phase``, if given, is called
+    with each phase name after its event."""
     import torch
 
     batch = ds.get_batch(fids)
@@ -492,6 +541,8 @@ def timed_train_step(net, ds, fids, gen):
         e = torch.cuda.Event(enable_timing=True)
         e.record()
         events.append((name, e))
+        if on_phase is not None:
+            on_phase(name)
 
     t0 = time.time()
     loss, info = net.train_step(batch, fids, RATIO, generator=gen, timer=mark)
@@ -501,11 +552,41 @@ def timed_train_step(net, ds, fids, gen):
     return loss, info, wall, phase_ms
 
 
-def train(net, ds, batches, gen, store) -> dict:
-    """Phase 10: TRAIN_STEPS training steps from a fresh remesh, with the
-    kernels' launch counts reset just before and read just after; the
-    point composite's arguments and upstream gradient are recorded for
-    phase 12. Returns the launch counts."""
+def fl_isolation_check(net, tag: str):
+    """A phase hook for one training step: after the remesh it keeps the
+    global leaves and the mesh vertices; after ① it requires them
+    unchanged and no gradient on any global leaf (① updates the curves
+    alone)."""
+    import torch
+
+    kept = {}
+
+    def hook(name):
+        if name == "remesh":
+            kept["leaves"] = {k: v.detach().clone() for k, v in net.global_leaves().items()}
+            kept["verts"] = [v.detach().clone() for v in net.mesh.garment_vs]
+        elif name == "fl":
+            leaves = net.global_leaves()
+            moved = [k for k, v in kept["leaves"].items() if not torch.equal(leaves[k], v)]
+            graded = [k for k, v in leaves.items() if v.grad is not None]
+            verts = [i for i, (a, b) in enumerate(zip(net.mesh.garment_vs, kept["verts"]))
+                     if not torch.equal(a, b)]
+            if moved or graded or verts:
+                raise AssertionError(f"① changed global state: leaves {moved}, gradients "
+                                     f"{graded}, vertex buffers {verts}")
+            log(f"[{tag}] after ① of step 0: no global leaf, gradient or vertex changed")
+
+    return hook
+
+
+def train(net, ds, batches, gen, store, steps: int = TRAIN_STEPS, k1_per_step: int = 3,
+          tag: str = "10", required=("fl_loss_total", "gnorm_fl")) -> dict:
+    """Phase 10 (and 14): ``steps`` training steps from a fresh remesh,
+    with the kernels' launch counts reset just before and read just after;
+    the point composite's arguments and upstream gradient and the last
+    step's mesh z-buffer arguments (``store["mesh_tiles_calls"]``, in
+    launch order) are recorded for phases 8b and 12; every step's info
+    must hold the ``required`` keys. Returns the launch counts."""
     import numpy as np
     import torch
 
@@ -514,34 +595,45 @@ def train(net, ds, batches, gen, store) -> dict:
     from recmv_tpu_torch.ops.mesh_raster import mesh_tiles
 
     before = {k: v.detach().clone() for k, v in net.global_leaves().items()}
+    curves0 = [v.detach().clone() for v in net.curve_leaves()]
     net.opt_times, net._remeshed_at = 0.0, -1.0          # a run starts with a remesh
     torch.cuda.reset_peak_memory_stats()
     steady = []
+    k1_calls = []
     mesh_tiles.launches = composite_tiles.launches = composite_tiles_bwd.launches = 0
     with rasterizer_kernels(recording(composite_tiles, store, "composite_tiles"),
-                            rasterizer.mesh_tiles):
-        for step, fids in enumerate(batches[:TRAIN_STEPS]):
-            bwd0 = composite_tiles_bwd.launches
-            loss, info, wall, phase_ms = timed_train_step(net, ds, fids, gen)
+                            recording_calls(rasterizer.mesh_tiles, k1_calls)):
+        for step, fids in enumerate(batches[:steps]):
+            bwd0, k1_0 = composite_tiles_bwd.launches, mesh_tiles.launches
+            k1_calls.clear()
+            loss, info, wall, phase_ms = timed_train_step(
+                net, ds, fids, gen, on_phase=fl_isolation_check(net, tag) if step == 0 else None)
             bad = {k: v for k, v in info.items() if not math.isfinite(v)}
-            if bad:
-                raise AssertionError(f"non-finite training outputs: {bad}")
+            if bad or not set(required) <= set(info):
+                raise AssertionError(f"non-finite or missing training outputs: {bad} "
+                                     f"{set(required) - set(info)}")
             if composite_tiles_bwd.launches <= bwd0:
                 raise AssertionError("the training step did not launch composite_tiles_bwd")
-            if info["tube_rayConv"] < 1:
+            if mesh_tiles.launches - k1_0 != k1_per_step:
+                raise AssertionError(f"mesh_tiles launched {mesh_tiles.launches - k1_0} times in "
+                                     f"a step, not {k1_per_step}")
+            if not info["gnorm_fl"] > 0.0:
+                raise AssertionError("① gave the curves no gradient")
+            if sum(info[f"{g}_rayConv"] for g in net.statics.garment_names) < 1:
                 raise AssertionError("no ray converged")
-            log(f"[10] {'start-up ' if step == 0 else ''}train step {step} frames "
+            log(f"[{tag}] {'start-up ' if step == 0 else ''}train step {step} frames "
                 f"{list(map(int, fids))} wall {wall:.3f} s phases_ms "
                 f"{json.dumps({k: round(v, 3) for k, v in phase_ms.items()})} loss {loss:.6f} "
                 f"info {json.dumps({k: round(v, 6) for k, v in info.items()})}")
             if step > 0:
                 steady.append((wall, phase_ms))
     torch.cuda.synchronize()
+    store["mesh_tiles_calls"] = list(k1_calls)
     launches = {"mesh_tiles": mesh_tiles.launches, "composite_tiles": composite_tiles.launches,
                 "composite_tiles_bwd": composite_tiles_bwd.launches}
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     mean = {k: float(np.mean([p[k] for _, p in steady])) for k in steady[0][1]}
-    log(f"[10] steady state over steps 1-{len(steady)}: wall mean "
+    log(f"[{tag}] steady state over steps 1-{len(steady)}: wall mean "
         f"{np.mean([w for w, _ in steady]):.4f} s (min {min(w for w, _ in steady):.4f}, max "
         f"{max(w for w, _ in steady):.4f}) phases_ms mean "
         f"{json.dumps({k: round(v, 3) for k, v in mean.items()})} peak device memory "
@@ -549,23 +641,112 @@ def train(net, ds, batches, gen, store) -> dict:
     if min(launches.values()) < 1:
         raise AssertionError(f"a kernel of the training path never launched: {launches}")
     after = net.global_leaves()
-    if not all(bool(torch.isfinite(v).all()) for v in after.values()):
+    if not all(bool(torch.isfinite(v).all()) for v in list(after.values()) + net.curve_leaves()):
         raise AssertionError("non-finite parameters after training")
     moved = {k: (after[k].detach() - before[k]).abs().max().item() for k in before}
+    curves_moved = [(a.detach() - b).abs().max().item() for a, b in zip(net.curve_leaves(),
+                                                                        curves0)]
     must_move = ("garment_sdfs.", "translator.", "render.", "scene.poses", "scene.trans",
                  "scene.conds.deformer", "scene.camera.focal_length",
                  "scene.camera.princeple_points", "scene.camera.world2cam_coord_trans")
     still = [k for k in moved if k.startswith(must_move) and moved[k] == 0.0]
     frozen = {k: moved[k] for k in ("scene.shape", "scene.camera.cam2world_coord_quat")}
     groups = {g: max(v for k, v in moved.items() if k.startswith(g)) for g in must_move}
-    log(f"[10] largest change per group {json.dumps({k: float(f'{v:.3e}') for k, v in groups.items()})} "
+    log(f"[{tag}] largest change per group {json.dumps({k: float(f'{v:.3e}') for k, v in groups.items()})} "
+        f"curves (scale, nx_scale) {[float(f'{v:.3e}') for v in curves_moved]} "
         f"frozen {json.dumps(frozen)}")
-    if any(groups[g] == 0.0 for g in must_move) or any(frozen.values()):
-        raise AssertionError(f"trained leaves unchanged or frozen leaves moved: "
-                             f"{[g for g in must_move if groups[g] == 0.0]} {frozen}")
+    if (any(groups[g] == 0.0 for g in must_move) or any(frozen.values())
+            or min(curves_moved) == 0.0):
+        raise AssertionError(f"trained leaves or curves unchanged or frozen leaves moved: "
+                             f"{[g for g in must_move if groups[g] == 0.0]} {curves_moved} "
+                             f"{frozen}")
     if still:
-        log(f"[10] leaves with no change (no gradient reached them): {still}")
+        log(f"[{tag}] leaves with no change (no gradient reached them): {still}")
     return launches
+
+
+def compare_zbuffers(net, calls, tag: str, seeding: bool = False) -> None:
+    """Phase 8b (and 14): K1 against its plain version on the ① body and
+    garment z-buffer arguments recorded from a training step (the launches
+    before the seeding's, at 1/zbuf_downscale resolution) and, with
+    ``seeding``, on the seeding z-buffers' too."""
+    zb_w = -(-net.statics.image_size[0] // net.cfg.zbuf_downscale)
+    zb_wt = -(-zb_w // net.cfg.raster_tile)
+    G = net.statics.garment_size
+    names = (["body"] + [f"garment {g}" for g in net.statics.garment_names]
+             + [f"seeding {g}" for g in net.statics.garment_names] * seeding)
+    if len(calls) != 1 + 2 * G or any(c[3] != zb_wt for c in calls[:1 + G]):
+        raise AssertionError(f"unexpected mesh z-buffer launches in a step: "
+                             f"{[(c[0].shape, c[3]) for c in calls]}")
+    for name, args in zip(names, calls):
+        compare_mesh_tiles(f"{tag} {name} z-buffer", args, min_cover=0.002)
+
+
+def curve_branch_plain(net, ds, fids, dev) -> None:
+    """Phase 13: ① of a training batch, forward and backward to the
+    curves, with the kernels and with the plain versions: the same
+    visibility masks (K1 gives the plain version's bits), the same loss
+    within 1e-6 of it, curve gradients within 1e-4 of each leaf's largest
+    entry (the gradient scatters' atomics sum in other orders)."""
+    import numpy as np
+    import torch
+
+    from recmv_tpu_torch.ops.composite import composite_tiles
+    from recmv_tpu_torch.ops.mesh_raster import _mesh_tiles_torch, mesh_tiles
+
+    fids_t = torch.as_tensor(np.asarray(fids) + ds.start_idx, device=dev)
+    dev_b = net.device_batch(ds.get_batch(fids))
+    leaves = net.curve_leaves()
+    runs = []
+    for mesh in (mesh_tiles, _mesh_tiles_torch):
+        masks = []
+        with rasterizer_kernels(composite_tiles, mesh), recording_masks(masks):
+            loss, info = net.fl_branch_loss(net.params["curves"], fids_t, dev_b["fl_pts"],
+                                            dev_b["fl_masks"], RATIO, net.mesh.garment_vs,
+                                            net.mesh.garment_fs)
+            grads = torch.autograd.grad(loss, leaves)
+        runs.append((loss.item(), masks, grads))
+    torch.cuda.synchronize()
+    (l_k, m_k, g_k), (l_p, m_p, g_p) = runs
+    same = len(m_k) == len(m_p) and all(torch.equal(a, b) for a, b in zip(m_k, m_p))
+    rel = [((a - b).abs().max() / b.abs().max().clamp(min=1e-30)).item()
+           for a, b in zip(g_k, g_p)]
+    g_max = min(b.abs().max().item() for b in g_p)
+    log(f"[13] ① forward + backward with plain versions: loss {l_k:.8f} vs {l_p:.8f}, masks "
+        f"equal {same} (visible {[int(m.sum()) for m in m_k]} of {m_k[0].numel()} per curve), "
+        f"curve grads worst relative err {max(rel):.3e} (smallest max {g_max:.3e})")
+    if not same or abs(l_k - l_p) > 1e-6 * abs(l_p) or max(rel) > 1e-4 or g_max <= 0.0:
+        raise AssertionError("① differs between kernels and plain versions")
+
+
+def two_garment_run(dev, work: str) -> None:
+    """Phase 14: the synthetic-two scene, three training steps with the
+    curve-aware term; five mesh z-buffer launches a step; the point
+    composite over the two garments' channels. Then each kernel against
+    its plain version on the arguments the last step gave it: K1 on all
+    five z-buffers, K2 and K3 on the two-channel mask composite."""
+    import torch
+
+    ds, sampler, net = build_smoke_net(dev, work, "synthetic-two", frames=TWO_FRAMES,
+                                       image=TWO_IMAGE, phase="14")
+    batches = list(sampler)
+    while len(batches) < 3:
+        batches.extend(list(sampler))
+    store = {}
+    gen = torch.Generator(device=dev).manual_seed(2)
+    launches = train(net, ds, batches, gen, store, steps=3,
+                     k1_per_step=1 + 2 * net.statics.garment_size, tag="14",
+                     required=("fl_loss_total", "gnorm_fl", "curve_aware_loss"))
+    C = store["composite_tiles"][3].shape[2]
+    log(f"[14] two garments: composite channels {C}, curve_aware_loss "
+        f"{net.info['curve_aware_loss']:.6f}, launches {json.dumps(launches)}")
+    if C != 2:
+        raise AssertionError(f"the two-garment mask composite has {C} channels, not 2")
+    compare_zbuffers(net, store["mesh_tiles_calls"], "14", seeding=True)
+    fwd = store["composite_tiles"]
+    compare_composite_tiles("14", fwd)
+    compare_composite_bwd("14", fwd + (store["composite_tiles.grad"].contiguous(),
+                                       fwd[3].requires_grad))
 
 
 def branch_backward(net, ds, fids, dev) -> None:
@@ -698,16 +879,21 @@ def main() -> int:
     # main path gave it in phase 7, with both times
     kres = {"mesh_tiles": compare_mesh_tiles("8", main_args["mesh_tiles"], min_cover=0.01),
             "composite_tiles": compare_composite_tiles("8", main_args["composite_tiles"])}
-    # phase 8b: K1 at the shape of the ① body z-buffer
-    compare_mesh_tiles("8b", body_zbuffer_args(net, fids_t, dev), min_cover=0.01)
 
-    # phases 10-12: training
+    # phases 10-13: training with ① (8b: K1 on its recorded ① arguments)
     train_args = {}
     launches = train(net, ds, batches[3:], gen, train_args)
+    compare_zbuffers(net, train_args["mesh_tiles_calls"], "8b")
     branch_backward(net, ds, batches[-1], dev)
     fwd = train_args["composite_tiles"]
     kres["composite_tiles_bwd"] = compare_composite_bwd(
         "12", fwd + (train_args["composite_tiles.grad"].contiguous(), fwd[3].requires_grad))
+    curve_branch_plain(net, ds, batches[-1], dev)
+    del net, train_args, fwd
+    torch.cuda.empty_cache()
+
+    # phase 14: the two-garment scene
+    two_garment_run(dev, tempfile.mkdtemp(prefix="recmv_chip_smoke_two_"))
 
     sources = {"mesh_tiles": ("recmv_tpu_torch/csrc/mesh_raster.cu",
                               "recmv_tpu/ops/pallas_raster.py:31"),

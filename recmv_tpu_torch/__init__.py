@@ -5,11 +5,13 @@ layout (``config/ ops/ models/ core/ data/``) and its function names, so
 each module's counterpart is found under the same path. It imports torch,
 numpy and scipy, never JAX.
 
-What is ported so far is the training step without the ① curve branch:
-remesh (seg3d + host marching cubes), the ② mask branch's point-splat
-render and IoU with its backward, ray seeding through the mesh
+What is ported so far is the whole training step: remesh (seg3d + host
+marching cubes), the ① curve branch with its visibility gates (body and
+garment z-buffers through the mesh rasterizer), the ② mask branch's
+point-splat render and IoU with its backward, ray seeding through the mesh
 rasterizer, the surface solve, the whole ③ ``main_loss`` through the
-implicit surface adjoint, and the optimizer updates. The three TPU kernels
+implicit surface adjoint, and the optimizer updates. The initializations
+(which build the curves) are not. The three TPU kernels
 on that path (the mesh z-buffer, the point composite and its backward) are
 hand-written CUDA C++ for Hopper (``csrc/``), built with ``nvcc`` at first
 use and bound with ctypes (``_build.py``); each sits beside a plain
@@ -18,7 +20,7 @@ tensors only. Entry points run on the card unless a device is named.
 
 Precision: float32, with TF32 switched off for matmuls and cuDNN below,
 except where the JAX package computes with bf16 operands: the translator
-and the pc-sdf values take bf16 operands with f32 accumulation
+and the pc-sdf and curve-aware values take bf16 operands with f32 accumulation
 (``models/mlp.Linear`` with ``compute_dtype``), as there.
 """
 

@@ -15,6 +15,9 @@ any object or dict with the ``SkinnerParams`` fields.
 - the garment mesh buffers of a remesh era: ``load_mesh`` gives them to a
   network (with a fresh vertex optimizer), ``mesh_to_numpy`` takes them
   back.
+- the feature curves: ``load_curves`` gives a network the curve leaves
+  (``scale``, ``nx_scale``) and the ``CurveStatics`` fields (with a fresh
+  curve optimizer), ``export_curves`` takes them back.
 """
 
 from __future__ import annotations
@@ -25,6 +28,7 @@ import numpy as np
 import torch
 
 from . import resolve_device
+from .models.curves import CurveStatics
 from .models.skinner import SkinnerParams
 
 NETS = ("sdf", "translator", "render")
@@ -138,3 +142,28 @@ def mesh_to_numpy(net) -> tuple:
     """(vertex buffers, face buffers) of a port network as numpy lists."""
     return ([v.detach().cpu().numpy() for v in net.mesh.garment_vs],
             [f.cpu().numpy() for f in net.mesh.garment_fs])
+
+
+_CURVE_FIELDS = ("center", "v_dirs", "init_scale", "nx", "cano_smpl_verts")
+
+
+def load_curves(net, params: dict, statics) -> None:
+    """Install a curve state in a port network: ``params`` {scale,
+    nx_scale} and ``statics`` (an object or dict with the ``CurveStatics``
+    fields) as numpy; a fresh curve optimizer."""
+    get = (lambda k: statics[k]) if isinstance(statics, dict) else (lambda k: getattr(statics, k))
+    net.curve_statics = CurveStatics(
+        **{k: torch.tensor(np.asarray(get(k), np.float32), device=net.device)
+           for k in _CURVE_FIELDS}, fl_names=tuple(get("fl_names")))
+    net.params["curves"] = {k: torch.tensor(np.asarray(params[k], np.float32),
+                                            device=net.device).requires_grad_()
+                            for k in ("scale", "nx_scale")}
+    net.reset_curve_optimizer()
+
+
+def export_curves(net) -> tuple:
+    """(params, statics) of a port network's curves as numpy dicts."""
+    cs = net.curve_statics
+    statics = {k: getattr(cs, k).detach().cpu().numpy() for k in _CURVE_FIELDS}
+    statics["fl_names"] = tuple(cs.fl_names)
+    return ({k: v.detach().cpu().numpy() for k, v in net.params["curves"].items()}, statics)

@@ -1,7 +1,8 @@
 """Network assembly from config + dataset (counterpart of
 ``recmv_tpu/core/builder.py``): the skinner (cached per scene in the same
-``initial_skinner_<type>.npz`` layout the JAX builder writes), the SDF,
-deformer and render nets, the seg3d pyramid and the ``TrainConfig``.
+``initial_skinner_<type>.npz`` layout the JAX builder writes, with the
+canonical body mesh the ① body z-buffer poses), the SDF, deformer and
+render nets, the seg3d pyramid and the ``TrainConfig``.
 
 The beta pre-fit from 2D joints is not ported yet: the dataset raises for
 a scene that ships them (synthetic scenes do not).
@@ -53,6 +54,16 @@ def resolution_pyramids(level: str):
     return tuple(out)
 
 
+def scene_caps(image_size, resolutions) -> dict:
+    """The ``TrainConfig`` defaults that follow from the scene: the marching
+    cubes' buffers from the finest seg3d level, and a half-resolution mask
+    render from 720 px up."""
+    Wg, Hg, Dg = resolutions[-1]
+    cap_v = 1 << int(np.ceil(np.log2(8 * max(Wg * Hg, Wg * Dg, Hg * Dg))))
+    return dict(mc_capacity_v=cap_v, mc_capacity_f=2 * cap_v,
+                mask_render_downscale=2 if min(image_size) >= 720 else 1)
+
+
 _SKIN_FIELDS = ("ws", "Js", "init_pose_inv", "extra_trans", "bbox_center",
                 "bbox_extend", "b_min", "b_max")
 
@@ -72,6 +83,7 @@ def build_opt_net(conf, dataset, save_root: str, resolutions=None,
         data = np.load(skin_cache)
         sk = SkinnerParams(**{k: torch.as_tensor(data[k], device=device)
                               for k in _SKIN_FIELDS})
+        body_vs, body_fs = data["tmpBodyVs"], data["tmpBodyFs"]
     else:
         model = get_smpl(dataset.gender, smpl_dir)
         sk, body_vs, body_fs = initial_lbs_skinner(
@@ -81,7 +93,8 @@ def build_opt_net(conf, dataset, save_root: str, resolutions=None,
         if osp.isfile(fite):
             ws = np.load(fite)
             sk.ws = torch.as_tensor(ws.reshape(ws.shape[-4:]), device=device)
-        np.savez(skin_cache, tmpBodyVs=body_vs.cpu().numpy(), tmpBodyFs=np.asarray(body_fs),
+        body_vs, body_fs = body_vs.cpu().numpy(), np.asarray(body_fs)
+        np.savez(skin_cache, tmpBodyVs=body_vs, tmpBodyFs=body_fs,
                  **{k: getattr(sk, k).cpu().numpy() for k in _SKIN_FIELDS})
 
     image_size = (dataset.W, dataset.H)
@@ -91,29 +104,29 @@ def build_opt_net(conf, dataset, save_root: str, resolutions=None,
     seg3d_cfg = Seg3dConfig(b_min=tuple(bmin.tolist()), b_max=tuple(bmax.tolist()),
                             resolutions=tuple(resolutions or resolution_pyramids("coarse")))
 
-    Wg, Hg, Dg = seg3d_cfg.resolutions[-1]
-    cap_v = 1 << int(np.ceil(np.log2(8 * max(Wg * Hg, Wg * Dg, Hg * Dg))))
+    caps = scene_caps(image_size, seg3d_cfg.resolutions)
 
-    def _cap(key, default):
-        return conf.get_int(f"train.caps.{key}", default)
+    def _cap(key, default=None):
+        return conf.get_int(f"train.caps.{key}", caps.get(key, default))
 
     cfg = train_cfg or TrainConfig(
         sample_pix=conf.get_int("train.sample_pix_num", 2048),
         point_radius=conf.get_float("train.coarse.point_render.radius", 0.006),
         remesh_intersect=conf.get_int("train.coarse.point_render.remesh_intersect", 30),
-        mc_capacity_v=_cap("mc_capacity_v", cap_v),
-        mc_capacity_f=_cap("mc_capacity_f", 2 * cap_v),
+        mc_capacity_v=_cap("mc_capacity_v"),
+        mc_capacity_f=_cap("mc_capacity_f"),
         raster_tile=_cap("raster_tile", 32),
         raster_cap_mesh=_cap("raster_cap_mesh", 512),
         raster_cap_points=_cap("raster_cap_points", 768),
         solver_times=_cap("solver_times", 20),
         surface_sample=_cap("surface_sample", 4096),
+        zbuf_downscale=_cap("zbuf_downscale", 4),
         seed_downscale=_cap("seed_downscale", 2),
-        mask_render_downscale=_cap("mask_render_downscale",
-                                   2 if min(image_size) >= 720 else 1),
+        mask_render_downscale=_cap("mask_render_downscale"),
     )
     loss_conf = conf.get_config("loss_coarse") if "loss_coarse" in conf else conf
-    net = GarmentOptimNetwork(conf, dataset, params, statics, seg3d_cfg, cfg, device=device)
+    net = GarmentOptimNetwork(conf, dataset, params, statics, seg3d_cfg, cfg, device=device,
+                              body_vs=body_vs, body_fs=body_fs)
     net.conf = _MergedConf(conf, loss_conf)
     return net
 
@@ -140,3 +153,6 @@ class _MergedConf:
 
     def get_bool(self, path, default=None):
         return self._get("bool", path, default)
+
+    def get_string(self, path, default=None):
+        return self._get("string", path, default)

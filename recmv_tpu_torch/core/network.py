@@ -3,18 +3,20 @@
 
 Ported: ``TrainConfig``, ``MeshState`` and, on ``GarmentOptimNetwork``,
 the remesh (``marching_cube_update``: seg3d pyramid + host marching cubes
-+ the capacity trim), the ② mask branch (``pc_branch_loss``), ray seeding
++ the capacity trim), the feature curves (``align_fl``), the ① curve
+branch (``fl_branch_loss``: the visibility gates, the body and garment
+z-buffers through K1, the 2D chamfer, the curve regularizers and the SDF
+anchoring), the ② mask branch (``pc_branch_loss``), ray seeding
 (``find_and_sample_rays``), the surface solve (``solve_surface_points``),
-③ ``main_loss`` with the implicit surface adjoint, the optimizers (Adam
-over the global parameters with the trainable mask and the lr scale, SGD
-with momentum over the mesh vertices) and ``train_step``, which does what
-the fused JAX ``step_fn`` does for a scene without feature curves.
-``forward_step`` runs the same phases without gradients or updates, with
-``idr_color_loss`` for the colour block.
+③ ``main_loss`` with the implicit surface adjoint and the curve-aware
+term, the optimizers (AdamW over the curves; Adam over the global
+parameters with the trainable mask and the lr scale; SGD with momentum
+over the mesh vertices) and ``train_step``, which does what the fused
+JAX ``step_fn`` does. ``forward_step`` runs the phases from ② on without
+gradients or updates, with ``idr_color_loss`` for the colour block.
 
-Not ported yet: the ① curve branch and the curve-aware ③ term (which
-raises when its gate names a curve), the initializations, checkpoints
-and the large-pose stage.
+Not ported yet: the initializations, checkpoints and the large-pose
+stage.
 """
 
 from __future__ import annotations
@@ -28,21 +30,23 @@ import torch
 import torch.nn.functional as F
 
 from .. import resolve_device
-from ..config.constants import CURVE_AWARE
+from ..config.constants import CURVE_AWARE, FL_EXTRACT, ZBUF_THRESHOLD
 from ..data.dataset import trainable_mask
 from ..models import camera as cam_mod
-from ..models.deformer import (cardinal_rays_from_jac, deformed_normals_from_grads,
-                               deformer_jacobian)
+from ..models.curves import curves_forward, curves_regularization, init_curves
+from ..models.deformer import (InverseFlBody, cardinal_rays_from_jac,
+                               deformed_normals_from_grads, deformer_jacobian)
 from ..models.garment_model import ModelStatics, make_deform_fn, scene_camera, split_deform_conds
 from ..models.render_net import render_net_apply
 from ..models.sdf import sdf_apply, sdf_gradient, sdf_value, sdf_value_and_gradient
-from ..models.skinner import posed_skeleton
+from ..models.skinner import posed_skeleton, skinner_apply
 from ..models.translator import translator_apply
 from ..native import marching_cubes_host
 from ..ops.math3d import dct_null_space, gm_robust_error
 from ..ops.rasterizer import composite_points, find_surface_points, rasterize_mesh, screen_with_cam_z
 from ..ops.seg3d import Seg3dConfig, final_grid_spacing, seg3d_forward
 from . import losses as L
+from . import visibility as V
 from .surface_ps import attach_implicit_surface, optimize_surface_points, ray_constraint
 
 
@@ -74,6 +78,8 @@ class TrainConfig:
     surface_sample: int = 4096
     seed_downscale: int = 2
     mask_render_downscale: int = 1
+    zbuf_downscale: int = 4       # the ① z-buffers' resolution divisor
+    curve_lr: float = 1e-4        # the curves' AdamW learning rate
 
 
 def _ratio_dict(ratio) -> dict:
@@ -89,7 +95,9 @@ class GarmentOptimNetwork:
 
     def __init__(self, conf, dataset, params: dict, statics: ModelStatics,
                  seg3d_cfg: Seg3dConfig, train_cfg: TrainConfig | None = None,
-                 sdf_shrink: float = 0.0, device=None):
+                 sdf_shrink: float = 0.0, device=None, body_vs=None, body_fs=None):
+        """``body_vs`` (V, 3) / ``body_fs`` (F, 3): the canonical body mesh
+        that the ① body z-buffer poses (``build_opt_net``'s skinner mesh)."""
         self.conf = conf
         self.full_conf = conf
         self.dataset = dataset
@@ -106,6 +114,14 @@ class GarmentOptimNetwork:
         self.ang_thred = None
         self.isfine = False
         self.dct_null = torch.as_tensor(dct_null_space(10, 30), device=self.device)
+        self.tmp_body_vs = (None if body_vs is None else
+                            torch.as_tensor(body_vs, dtype=torch.float32, device=self.device))
+        self.tmp_body_fs = (None if body_fs is None else
+                            torch.as_tensor(np.asarray(body_fs), dtype=torch.int64,
+                                            device=self.device))
+        self.curve_statics = None     # set with params["curves"] by align_fl
+        self.inverse_fl_body = None
+        self.curve_opt = None
         p = dataset.params
 
         def t(a):
@@ -160,6 +176,40 @@ class GarmentOptimNetwork:
             self._trainable[name] = bool(m[parts[2]] if isinstance(m, dict) else m)
         self.global_opt = torch.optim.Adam(list(self.global_leaves().values()), lr=lr,
                                            betas=(0.9, 0.999), eps=1e-8)
+
+    def curve_leaves(self) -> list:
+        """The curve parameters the curve AdamW updates: [scale, nx_scale]."""
+        cp = self.params["curves"]
+        return [cp["scale"], cp["nx_scale"]]
+
+    def reset_curve_optimizer(self):
+        """AdamW(curve_lr, betas (0.9, 0.999), eps 1e-8, weight decay 1e-4),
+        which equals ``optax.adamw(curve_lr)``: optax's default weight
+        decay is 1e-4 (torch's 1e-2), and both decay by lr·wd·p from the
+        pre-update parameter."""
+        self.curve_opt = torch.optim.AdamW(self.curve_leaves(), lr=self.cfg.curve_lr,
+                                           betas=(0.9, 0.999), eps=1e-8, weight_decay=1e-4)
+
+    def align_fl(self, aligned_curves: dict, template_curves: dict, rigid: dict):
+        """Build the curve parameterization from the aligned curves, the
+        template curves and the rigid (t, s) of each curve (name → (S, 3),
+        (S, 3), ((3,), ())), with the inverse map to canonical body space;
+        curves follow the dataset's order. Sets ``params["curves"]``,
+        ``curve_statics``, ``inverse_fl_body`` and a fresh curve optimizer.
+        Returns (params, statics)."""
+        fl_names = [n for n in self.dataset.fl_names if n in aligned_curves]
+        inv = InverseFlBody(fl_names, [template_curves[n] for n in fl_names],
+                            [rigid[n][0] for n in fl_names], [rigid[n][1] for n in fl_names],
+                            device=self.device)
+        cano_smpl = inv([torch.as_tensor(aligned_curves[n], dtype=torch.float32,
+                                         device=self.device) for n in fl_names], fl_names)
+        params, statics = init_curves([aligned_curves[n] for n in fl_names], cano_smpl, fl_names,
+                                      device=self.device)
+        self.params["curves"] = params
+        self.curve_statics = statics
+        self.inverse_fl_body = inv
+        self.reset_curve_optimizer()
+        return params, statics
 
     def set_lr_scale(self, scale: float):
         """MultiStepLR counterpart, as in the JAX package: the factor scales
@@ -295,6 +345,139 @@ class GarmentOptimNetwork:
             t = torch.as_tensor(v, device=self.device)
             out[k] = t > 0 if k in self._MASK_KEYS else t
         return out
+
+    # ------------------------------------------------------------------
+    # ① curve (feature-line) branch
+    # ------------------------------------------------------------------
+
+    @torch.no_grad()
+    def _body_zbuf_image(self, frame_ids, cam):
+        """The canonical body mesh posed by the skinner to the frames and
+        its z-buffer at 1/zbuf_downscale resolution → (zbuf (N, h, w),
+        posed (N, V, 3)); no graph."""
+        N = frame_ids.shape[0]
+        body = self.tmp_body_vs.expand((N,) + self.tmp_body_vs.shape)
+        posed = skinner_apply(self.params["skinner"], body, self.scene["poses"][frame_ids],
+                              self.scene["trans"][frame_ids])
+        zb = V.mesh_zbuf_image(cam, posed, self.tmp_body_fs, self.statics.image_size,
+                               tile=self.cfg.raster_tile, cap=self.cfg.raster_cap_mesh,
+                               downscale=self.cfg.zbuf_downscale)
+        return zb, posed
+
+    def _sample_zbuf(self, zbuf, screen_pts):
+        return V.sample_zbuf(zbuf, screen_pts, self.statics.image_size)
+
+    def fl_branch_loss(self, curve_params, frame_ids, fl_pts, fl_masks, ratio,
+                       garment_vs_t=None, garment_fs_t=None):
+        """①: per garment and curve, the deformed curve's 2D chamfer against
+        the gt polyline on the points that pass the visibility gate of
+        ``fl_visible_method`` (weighted per curve, averaged over the frames
+        with a visible point and the visible points), the curve
+        regularizers, and the canonical curves anchored to the garment SDF
+        (f32). The gates carry no gradient; the garment z-buffer needs the
+        mesh buffers ``garment_vs_t``/``garment_fs_t``. Returns
+        (10·sdf + projection, info)."""
+        cam = self._camera()
+        N = frame_ids.shape[0]
+        r = _ratio_dict(ratio)
+        cs = self.curve_statics
+        image_size = self.statics.image_size
+        curves = curves_forward(curve_params, cs)                  # (C, S, 3)
+        conds = split_deform_conds(self.scene["conds"]["deformer"][frame_ids],
+                                   self.statics.garment_size)
+        poses = self.scene["poses"][frame_ids]
+        trans = self.scene["trans"][frame_ids]
+        method = self.conf.get_string("fl_visible_method", "zbuff")
+        thr_scale = float(self.conf.get_float("fl_weight.zbuf_threshold_scale", 1.0))
+        fl_w = float(self.conf.get_float("fl_weight.weight", 1.0))
+        sdf_w = float(self.conf.get_float("fl_weight.sdf_weight", 60.0))
+        need_body = method in ("zbuff", "zbuff_and")
+        need_garment = method in ("garment_zbuff", "zbuff_and") and garment_vs_t is not None
+        zbuf = self._body_zbuf_image(frame_ids, cam)[0] if need_body else None
+        name_to_idx = {n: i for i, n in enumerate(cs.fl_names)}
+        ds_col = {n: i for i, n in enumerate(self.dataset.fl_names)}
+        info = {}
+        proj_loss = 0.0
+        fl_sdf_loss = 0.0
+        S = curves.shape[1]
+
+        for gi, gname in enumerate(self.statics.garment_names):
+            fl_names = [n for n in FL_EXTRACT[gname] if n in name_to_idx]
+            gsdf = self.params["garment_sdfs"][gi]
+            deform = make_deform_fn(self.params, conds[gi + 1], poses, trans, r["deformerRatio"])
+            g_zbuf = None
+            if need_garment:
+                with torch.no_grad():                # the deformed garment mesh's z-buffer
+                    vs = garment_vs_t[gi]
+                    g_zbuf = V.mesh_zbuf_image(cam, deform(vs.expand((N,) + vs.shape)),
+                                               garment_fs_t[gi], image_size,
+                                               tile=self.cfg.raster_tile,
+                                               cap=self.cfg.raster_cap_mesh,
+                                               downscale=self.cfg.zbuf_downscale)
+            g_proj = 0.0
+            for cname in fl_names:
+                ci = name_to_idx[cname]
+                cv = curves[ci]                                    # (S, 3)
+                scr = screen_with_cam_z(cam, deform(cv.expand(N, S, 3)))
+                thr = ZBUF_THRESHOLD[cname] * thr_scale
+                with torch.no_grad():
+                    body_vis = garment_vis = nrm_vis = None
+                    if need_body:                    # LBS-posed canonical-SMPL curve
+                        def_smpl = skinner_apply(self.params["skinner"],
+                                                 cs.cano_smpl_verts[ci].expand(N, S, 3),
+                                                 poses, trans)
+                        scr_smpl = screen_with_cam_z(cam, def_smpl)
+                        body_vis = V.zbuf_visible(scr_smpl[..., 2],
+                                                  self._sample_zbuf(zbuf, scr_smpl), thr)
+                    if need_garment:                 # the fully deformed curve
+                        garment_vis = V.zbuf_visible(scr[..., 2],
+                                                     self._sample_zbuf(g_zbuf, scr), thr)
+                    if method in ("surface", "sdf"):
+                        if method == "surface":
+                            nrm = V.outward_curve_normals(cv)
+                        else:
+                            nrm = sdf_gradient(gsdf, cv, r["sdfRatio"])
+                            nrm = nrm / torch.clamp(torch.linalg.norm(nrm, dim=-1, keepdim=True),
+                                                    min=1e-9)
+                        b_inds = torch.arange(N, device=self.device).repeat_interleave(S)
+                        deform_flat = make_deform_fn(self.params, conds[gi + 1], poses, trans,
+                                                     r["deformerRatio"], batch_inds=b_inds)
+                        posed_n = V.warp_normals_to_posed(
+                            deform_flat, cv.expand(N, S, 3).reshape(-1, 3),
+                            nrm.expand(N, S, 3).reshape(-1, 3))
+                        nrm_vis = V.normal_visible(posed_n.reshape(N, S, 3))
+                    visible = V.combine_visibility(method, body_vis, garment_vis, nrm_vis)
+                col = ds_col[cname]
+                pred_valid = visible & fl_masks[:, col][:, None]  # (N, S)
+                gt = fl_pts[:, col]                                # (N, G, 2)
+                w_curve = float(self.dataset.fl_weights.get(cname, 1.0))
+                d2 = ((scr[:, :, None, :2] - gt[:, None, :, :]) ** 2).sum(-1)   # (N, S, G)
+                min_pg = torch.where(pred_valid[..., None], d2, 1e12).amin(1)    # gt → pred
+                min_gp = d2.amin(2)                                # pred → gt (all gt)
+                any_v = pred_valid.any(1)
+                s = (torch.where(pred_valid, min_gp, 0.0).sum(1)
+                     + torch.where(any_v, min_pg.sum(1), 0.0))
+                chams = torch.where(any_v, s, 0.0)
+                valid_frames = (pred_valid.sum(-1) > 0).to(torch.float32).sum()
+                batch_loss = w_curve * chams.sum() / torch.clamp(valid_frames, min=1.0)
+                n_vis = pred_valid.to(torch.float32).sum()
+                g_proj = g_proj + batch_loss / torch.clamp(n_vis, min=1.0)
+            g_proj = g_proj / max(len(fl_names), 1) * fl_w
+            info[f"{gname}_project_loss"] = g_proj
+            proj_loss = proj_loss + g_proj
+
+            cano_fl = torch.cat([curves[name_to_idx[n]] for n in fl_names], 0)
+            s_loss = (sdf_value(gsdf, cano_fl, r["sdfRatio"]) + self.sdf_shrink).abs().mean()
+            info[f"fl_pc_{gname}_loss_sdf"] = s_loss
+            fl_sdf_loss = fl_sdf_loss + s_loss * sdf_w
+
+        reg = curves_regularization(curve_params, cs, fl_masks)
+        center_w = float(self.conf.get_float("alpha_weight.center_weight", 1.0))
+        diff_w = float(self.conf.get_float("alpha_weight.diff_weight", 1.0))
+        proj_loss = proj_loss + reg["center_offset"] * center_w + reg["diff_a_loss"] * diff_w
+        info["fl_center_loss"] = reg["center_offset"] * center_w
+        info["fl_diff_loss"] = reg["diff_a_loss"] * diff_w
+        return 10.0 * fl_sdf_loss + 1.0 * proj_loss, info
 
     # ------------------------------------------------------------------
     # ② mask (point-cloud) branch
@@ -519,14 +702,42 @@ class GarmentOptimNetwork:
         win, _ = self.dataset.get_batchframe_data("_frame_index_helper", fids, Nlen)
         return win
 
+    def _curve_aware_target(self):
+        """The curve of the curve-aware term, or None where it does not
+        fire: ``upper_bottom`` when the curves have one, else the garment
+        type's ``CURVE_AWARE`` curve in the fine stage; never with a zero
+        ``pc_weight.curve_aware_weight``. Raises where the term would fire
+        on curves that ``align_fl`` has not built yet."""
+        if float(self.conf.get_float("pc_weight.curve_aware_weight", 0.0)) <= 0:
+            return None
+        fine = self.dataset.garment_type in CURVE_AWARE and self.isfine
+        if self.curve_statics is None:
+            if "upper_bottom" in self.dataset.fl_names or fine:
+                raise ValueError("the curve-aware term needs the feature curves (align_fl)")
+            return None
+        if "upper_bottom" in self.curve_statics.fl_names:
+            return "upper_bottom"
+        return CURVE_AWARE[self.dataset.garment_type] if fine else None
+
+    def curve_aware_draws(self, generator=None) -> dict:
+        """The curve-aware term's 50,000 fan-disc draws: ``tri_i`` segment
+        indices into the target curve and ``uv`` (50000, 2) uniforms."""
+        dev = generator.device if generator is not None else self.device
+        S = self.curve_statics.v_dirs.shape[1]
+        return dict(tri_i=torch.randint(0, S, (50000,), generator=generator,
+                                        device=dev).to(self.device),
+                    uv=torch.rand(50000, 2, generator=generator, device=dev).to(self.device))
+
     def main_loss(self, solved, frame_ids, batch, garment_vs_t, counts, win_ids, ratio,
-                  draws):
-        """③: pc-sdf on the (updated, detached) mesh vertices; per garment
-        the eikonal term on local and global samples around the solved
-        points and vertices, the offset field's rigidity prior, and the
-        colour and normal losses on converged rays, reattached to the
-        parameters by the implicit surface adjoint; the DCT pose prior over
-        ``win_ids``. ``draws`` as ``main_draws`` makes them. Returns
+                  draws, curve_draws=None):
+        """③: pc-sdf on the (updated, detached) mesh vertices; the
+        curve-aware term where it fires, on the current curves as
+        constants; per garment the eikonal term on local and global samples
+        around the solved points and vertices, the offset field's rigidity
+        prior, and the colour and normal losses on converged rays,
+        reattached to the parameters by the implicit surface adjoint; the
+        DCT pose prior over ``win_ids``. ``draws`` as ``main_draws`` and
+        ``curve_draws`` as ``curve_aware_draws`` make them. Returns
         (total, info)."""
         scene = self.scene
         cam = self._camera()
@@ -550,12 +761,27 @@ class GarmentOptimNetwork:
             info[f"pc_{gname}_loss_sdf"] = s_loss
             total = total + s_loss * pc_w
 
-        # the curve-aware hemline disc loss needs the feature curves
-        ca_w = float(self.conf.get_float("pc_weight.curve_aware_weight", 0.0))
-        if ca_w > 0 and ("upper_bottom" in self.dataset.fl_names
-                         or (self.dataset.garment_type in CURVE_AWARE and self.isfine)):
-            raise NotImplementedError("the curve-aware loss needs the feature curves, "
-                                      "which are not ported")
+        # curve-aware hemline disc: the last garment's SDF on the fan disc
+        # of the (updated, constant) target curve
+        target = self._curve_aware_target()
+        if target is not None:
+            if curve_draws is None:
+                raise ValueError("the curve-aware term needs its draws (curve_aware_draws)")
+            with torch.no_grad():
+                cv = curves_forward(self.params["curves"], self.curve_statics)[
+                    list(self.curve_statics.fl_names).index(target)]
+                center = cv.mean(0, keepdim=True)
+                tri_i, uv = curve_draws["tri_i"], curve_draws["uv"]
+                flip = uv[:, 0] + uv[:, 1] > 1
+                u = torch.where(flip, 1 - uv[:, 0], uv[:, 0])
+                v = torch.where(flip, 1 - uv[:, 1], uv[:, 1])
+                pts = (cv[tri_i] * u[:, None] + cv[(tri_i + 1) % cv.shape[0]] * v[:, None]
+                       + center * (1 - u - v)[:, None])
+            sdfv = sdf_value(self.params["garment_sdfs"][-1], pts, r["sdfRatio"],
+                             compute_dtype=torch.bfloat16)
+            ca_loss = (sdfv + self.sdf_shrink).abs().mean()
+            info["curve_aware_loss"] = ca_loss
+            total = total + ca_loss * float(self.conf.get_float("pc_weight.curve_aware_weight"))
 
         grad_w = float(self.conf.get_float("grad_weight", 1.0))
         dr_w = float(self.conf.get_float("def_regu.weight", 0.0))
@@ -688,18 +914,21 @@ class GarmentOptimNetwork:
         return [torch.zeros_like(x) if g is None else g for g, x in zip(gs, inputs)]
 
     def train_step(self, batch, frame_ids, ratio, generator=None, draws=None, timer=None):
-        """One optimization step, as the fused JAX ``step_fn`` without
-        feature curves: remesh when due; ② mask branch forward and backward
-        to the vertices and the global parameters; the vertices' SGD step;
-        ray seeding from the pre-update mesh, reusing ②'s (detached)
-        deformation; the surface solve; ③ ``main_loss`` forward and
-        backward on the updated vertices; one Adam step on the sum of the
-        two global gradients after the trainable mask and the lr scale.
+        """One optimization step, as the fused JAX ``step_fn``: remesh when
+        due; with feature curves, ① forward on the pre-update parameters
+        and mesh, backward to the curve leaves alone, and the curves' AdamW
+        step; ② mask branch forward and backward to the vertices and the
+        global parameters; the vertices' SGD step; ray seeding from the
+        pre-update mesh, reusing ②'s (detached) deformation; the surface
+        solve; ③ ``main_loss`` forward and backward on the updated vertices
+        and curves; one Adam step on the sum of the ② and ③ global
+        gradients after the trainable mask and the lr scale.
 
         ``batch``: numpy dict from ``dataset.get_batch``; ``frame_ids``
         local indices. Random draws come from ``generator``; ``draws``
         ({"uniforms": per garment seeding uniforms, "main": ``main_draws``'
-        list}) replaces them. ``timer``, if given, is called with each
+        list, "curve_aware": ``curve_aware_draws``' dict where the term
+        fires}) replaces them. ``timer``, if given, is called with each
         phase name after the phase. Returns (main loss, info)."""
         local = np.asarray(frame_ids)
         fids = torch.as_tensor(local + self.dataset.start_idx, device=self.device)
@@ -712,6 +941,23 @@ class GarmentOptimNetwork:
         mark("remesh")
 
         dev = self.device_batch(batch)
+        mark("upload")
+        info_fl = {}
+        if self.params.get("curves"):
+            curve_leaves = self.curve_leaves()
+            fl_loss, info_fl = self.fl_branch_loss(
+                self.params["curves"], fids, dev["fl_pts"], dev["fl_masks"], r,
+                self.mesh.garment_vs, self.mesh.garment_fs)
+            g_cur = torch.autograd.grad(fl_loss, curve_leaves)
+            with torch.no_grad():
+                for p, g in zip(curve_leaves, g_cur):
+                    p.grad = g
+                self.curve_opt.step()
+                self.curve_opt.zero_grad(set_to_none=True)
+                info_fl["fl_loss_total"] = fl_loss
+                info_fl["gnorm_fl"] = torch.sqrt(sum(torch.sum(g * g) for g in g_cur))
+        mark("fl")
+
         gt_masks = [dev[k] for k in self._garment_mask_keys()]
         counts = torch.as_tensor(self.mesh.garment_n, device=self.device)
         leaves = self.global_leaves()
@@ -751,7 +997,12 @@ class GarmentOptimNetwork:
                                       device=self.device)
         main_draws = (draws["main"] if draws is not None
                       else self.main_draws(solved, gvs, generator))
-        m_loss, info_m = self.main_loss(solved, fids, dev, gvs, counts, win_ids, r, main_draws)
+        curve_draws = None
+        if self._curve_aware_target() is not None:
+            curve_draws = (draws["curve_aware"] if draws is not None
+                           else self.curve_aware_draws(generator))
+        m_loss, info_m = self.main_loss(solved, fids, dev, gvs, counts, win_ids, r, main_draws,
+                                        curve_draws)
         g_main = self._grads(m_loss, prms)
         mark("main")
 
@@ -765,7 +1016,7 @@ class GarmentOptimNetwork:
             self.global_opt.zero_grad(set_to_none=True)
         mark("update")
 
-        info = {**info_pc, "pc_loss_total": pc_loss, **info_m, "m_loss_total": m_loss,
+        info = {**info_fl, **info_pc, "pc_loss_total": pc_loss, **info_m, "m_loss_total": m_loss,
                 "gnorm_pc": gnorm_pc, "gnorm_main": gnorm_main}
         budget = max(self.cfg.sample_pix // self.statics.garment_size, 1) * N
         for gi, gname in enumerate(self.statics.garment_names):

@@ -1,6 +1,7 @@
 """Jacobian-based warps of the composite deformation field (counterpart of
 ``recmv_tpu/models/deformer.py``): the per-point Jacobian ∂D/∂p, the view
-ray pulled back to canonical space and the SDF normal pushed forward."""
+ray pulled back to canonical space, the SDF normal pushed forward, and
+the inverse of the feature curves' rigid alignment."""
 
 from __future__ import annotations
 
@@ -48,3 +49,27 @@ def cardinal_rays_from_jac(jac: torch.Tensor, rays: torch.Tensor):
     r = torch.where(ok[:, None], r, rays)
     r = r / torch.clamp(torch.linalg.norm(r, dim=-1, keepdim=True), min=1e-12)
     return r, ok
+
+
+class InverseFlBody:
+    """Undo the per-curve rigid alignment (scale s, translation t) that
+    ``align_fl`` applied in canonical body space: p_body = (p_aligned − t −
+    c)/s + c, with c the centre of the pre-alignment curve. Keyed by curve
+    name."""
+
+    def __init__(self, fl_names, cano_fl_verts_list, rigid_t_list, rigid_scale_list,
+                 device=None):
+        self.fl_names = list(fl_names)
+        self.center, self.verts, self.rigid_t, self.rigid_scale = {}, {}, {}, {}
+        for name, v, t, s in zip(self.fl_names, cano_fl_verts_list, rigid_t_list,
+                                 rigid_scale_list):
+            v = torch.as_tensor(v, dtype=torch.float32, device=device)
+            self.center[name] = v.mean(0, keepdim=True)
+            self.verts[name] = v
+            self.rigid_t[name] = torch.as_tensor(t, dtype=torch.float32,
+                                                 device=device).reshape(1, 3)
+            self.rigid_scale[name] = torch.as_tensor(s, dtype=torch.float32, device=device)
+
+    def __call__(self, rigid_cano_fl_verts_list, fl_names):
+        return [((v - self.rigid_t[n]) - self.center[n]) / self.rigid_scale[n] + self.center[n]
+                for v, n in zip(rigid_cano_fl_verts_list, fl_names)]

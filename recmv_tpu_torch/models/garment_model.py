@@ -3,8 +3,8 @@
 
 Parameters are a dict like the JAX pytree: ``sdf`` (body SDF),
 ``garment_sdfs`` (one per garment), ``translator``, ``render`` (modules)
-and ``skinner`` (``SkinnerParams``). The feature curves are not ported
-yet.
+and ``skinner`` (``SkinnerParams``); ``curves`` (``models/curves.py``)
+joins them when the network's ``align_fl`` builds the feature curves.
 """
 
 from __future__ import annotations

@@ -1,5 +1,6 @@
-"""Trilinear volume sampling and the volume helpers of the seg3d pyramid
-(counterpart of ``recmv_tpu/ops/grid_sample.py``).
+"""Trilinear volume sampling, bilinear image sampling and the volume
+helpers of the seg3d pyramid (counterpart of
+``recmv_tpu/ops/grid_sample.py``).
 
 ``grid_sample_3d`` keeps the JAX semantics — locations in [-1, 1] ordered
 (x, y, z) over the (W, H, D) axes, zero padding, align_corners=False —
@@ -39,6 +40,39 @@ def grid_sample_3d(vol: torch.Tensor, pts: torch.Tensor) -> torch.Tensor:
                 vals = torch.where(valid[None, :], flat[:, idx], 0.0)
                 term = vals * (wz * wy * wx)[None]
                 out = term if out is None else out + term
+    return out.transpose(0, 1)
+
+
+def grid_sample_2d(img: torch.Tensor, pts: torch.Tensor, align_corners: bool = False,
+                   image_ids: torch.Tensor | None = None) -> torch.Tensor:
+    """img (C, H, W), pts (N, 2) in [-1, 1] ordered (x, y) → (N, C):
+    bilinear, zero padding outside, the JAX ``grid_sample_2d``'s
+    unnormalization for both ``align_corners``. With ``image_ids`` (N,),
+    img is a stack (B, C, H, W) and point n samples image image_ids[n]."""
+    if image_ids is None:
+        img, image_ids = img[None], 0
+    B, C, H, W = img.shape
+    base = image_ids * (H * W)
+
+    def unnormalize(c, size):
+        if align_corners:
+            return (c + 1.0) / 2.0 * (size - 1)
+        return ((c + 1.0) * size - 1.0) / 2.0
+
+    x, y = unnormalize(pts[:, 0], W), unnormalize(pts[:, 1], H)
+    x0, y0 = torch.floor(x).detach(), torch.floor(y).detach()
+    wx1, wy1 = x - x0, y - y0
+    wx0, wy0 = 1.0 - wx1, 1.0 - wy1
+    xi, yi = x0.to(torch.int64), y0.to(torch.int64)
+    flat = img.transpose(0, 1).reshape(C, -1)
+    out = None
+    for dy, wy in ((0, wy0), (1, wy1)):
+        for dx, wx in ((0, wx0), (1, wx1)):
+            xc, yc = xi + dx, yi + dy
+            valid = (xc >= 0) & (xc < W) & (yc >= 0) & (yc < H)
+            idx = base + yc.clamp(0, H - 1) * W + xc.clamp(0, W - 1)
+            term = torch.where(valid[None, :], flat[:, idx], 0.0) * (wy * wx)[None]
+            out = term if out is None else out + term
     return out.transpose(0, 1)
 
 

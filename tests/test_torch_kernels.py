@@ -107,6 +107,52 @@ def test_mesh_tiles_kernel_worst_case(cuda):
 
 
 @pytest.mark.gpu
+def test_mesh_tiles_kernel_on_body_zbuffer(cuda, monkeypatch):
+    """The ① body z-buffer: the synthetic body posed to three frames, seen
+    by the synthetic scene's camera at 1080², rasterized at 1/4 resolution
+    (270², tile 32, cap 512) by ``visibility.mesh_zbuf_image``, which fills
+    the empty pixels with each frame's largest vertex depth: the kernel
+    gives the plain version's bits, and the kernel launched once."""
+    from recmv_tpu_torch.core import visibility
+    from recmv_tpu_torch.core.builder import apose_from_type
+    from recmv_tpu_torch.data.synthetic import make_camera_params
+    from recmv_tpu_torch.models.camera import make_camera
+    from recmv_tpu_torch.models.skinner import initial_lbs_skinner, skinner_apply
+    from recmv_tpu_torch.models.smpl import synthetic_body_model
+    from recmv_tpu_torch.ops import rasterizer
+    from recmv_tpu_torch.ops.mesh_raster import _mesh_tiles_torch, mesh_tiles
+
+    sk, body_vs, body_fs = initial_lbs_skinner(synthetic_body_model(),
+                                               torch.zeros(10, device=cuda),
+                                               apose_from_type(0), (33, 57, 17))
+    rng = np.random.RandomState(3)
+    poses = torch.as_tensor(0.2 * rng.randn(3, 24, 3).astype(np.float32), device=cuda)
+    poses[:, 0, 1] = torch.tensor([0.0, 2.0, 4.0], device=cuda)          # three yaws
+    posed = skinner_apply(sk, body_vs[None].expand(3, -1, -1), poses,
+                          torch.zeros(3, 3, device=cuda))
+    c = make_camera_params(1080)
+    cam = make_camera({"focal_length": np.array([c["fx"], c["fy"]]),
+                       "princeple_points": np.array([c["cx"], c["cy"]]),
+                       "cam2world_coord_quat": c["quat"], "world2cam_coord_trans": c["T"]},
+                      (1080, 1080), device=cuda)
+    faces = torch.as_tensor(np.asarray(body_fs), device=cuda)
+    with torch.no_grad():
+        mesh_tiles.launches = 0
+        got = visibility.mesh_zbuf_image(cam, posed, faces, (1080, 1080), tile=32, cap=512,
+                                         downscale=4)
+        assert mesh_tiles.launches == 1
+        monkeypatch.setattr(rasterizer, "mesh_tiles", _mesh_tiles_torch)
+        want = visibility.mesh_zbuf_image(cam, posed, faces, (1080, 1080), tile=32, cap=512,
+                                          downscale=4)
+    torch.cuda.synchronize()
+    assert got.shape == (3, 270, 270)
+    assert torch.equal(got, want)
+    for zb in want:
+        covered = (zb < zb.max()).float().mean().item()
+        assert 0.02 < covered < 0.9
+
+
+@pytest.mark.gpu
 def test_composite_kernel_matches_plain(cuda):
     from recmv_tpu_torch.ops.composite import _composite_tiles_torch, composite_tiles
 
