@@ -65,7 +65,29 @@ Phases, one printed line each (or more):
     each kernel against its plain version on the arguments of the last
     step: the mesh z-buffer on all five z-buffers (135² and 270², tile 32,
     cap 512), the composite forward and backward on the two-channel mask
-    render, as in phases 8 and 12.
+    render, as in phases 8 and 12;
+15. the training CLI, ``recmv_tpu_torch.train.main``, in process on a
+    synthetic-tube scene of 16 frames at 1080² with ``smoke.conf`` less
+    its ``train.caps`` block (the scene-derived production caps, the
+    flagship widths, the coarse pyramid): the one-time initialization
+    (60 IGR epochs, the conf's ``initial_iters``; 150 curve iterations),
+    4 training steps and ``latest.ckpt``, then a second run resumed from
+    it for 2 steps, with the kernels' launch counts set to 0 before the
+    first run and read after the second. It prints each part of the
+    initialization (the IGR fits with ms per epoch and last loss), the
+    fitted T and s of each curve beside the scene's ring, the garment
+    mesh of the first remesh against its clip box, each step's time and
+    converged rays beside phase 10's, K1's launches in the
+    initialization; then each kernel against its plain version on the
+    arguments this phase gave it: K1 on ``initialize_fl``'s gate (16
+    frames at 270²) and on the last step's three z-buffers (① body and
+    garment at 270², seeding at 540², of the initialized garment), K2 and
+    K3 on the last step's mask composite, as in phases 8b and 12. It
+    raises on a non-finite output, missing curves or checkpoints, a
+    garment surface outside its clip box (by more than a grid cell), a
+    reload that differs from the saved parameters by a bit, a resume at
+    another epoch or step count, a step with no converged ray or other
+    than three K1 launches, or a kernel of the path that never launched.
 
 A kernel's bound is the larger of the bytes it must move (each input
 read once: the listed candidates, the counts, the upstream gradient;
@@ -95,6 +117,9 @@ IMAGE = 1080
 FRAMES = 32
 TRAIN_STEPS = 6
 TWO_IMAGE, TWO_FRAMES = 540, 8  # the two-garment phase's scene
+CLI_FRAMES, CLI_INIT_EPOCHS = 16, 60   # the CLI phase: smoke.conf's initial_iters
+CLI_STEPS, CLI_RESUME_STEPS = 4, 2
+CLI_QUALITY = "coarse"                 # the CLI's default pyramid
 SKINNER_RES = (129, 225, 65)
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory, published peak
 FP32_FLOP_PER_S = 67e12        # H100 SXM float32 outside the tensor cores, published peak
@@ -413,6 +438,18 @@ def recording_calls(fn, calls: list):
     return call
 
 
+def recording_results(fn, results: list):
+    """``fn`` that also appends (first argument after ``self``, result) of
+    each call of the method ``fn`` to ``results``."""
+
+    def call(self, *args):
+        out = fn(self, *args)
+        results.append((args[0] if args else None, out))
+        return out
+
+    return call
+
+
 @contextlib.contextmanager
 def recording_masks(masks: list):
     """Append every visibility mask ``fl_branch_loss`` takes to ``masks``."""
@@ -619,8 +656,10 @@ def train(net, ds, batches, gen, store, steps: int = TRAIN_STEPS, k1_per_step: i
                                      f"a step, not {k1_per_step}")
             if not info["gnorm_fl"] > 0.0:
                 raise AssertionError("① gave the curves no gradient")
-            if sum(info[f"{g}_rayConv"] for g in net.statics.garment_names) < 1:
+            conv = sum(info[f"{g}_rayConv"] for g in net.statics.garment_names)
+            if conv < 1:
                 raise AssertionError("no ray converged")
+            store.setdefault("ray_conv", []).append(int(conv))
             log(f"[{tag}] {'start-up ' if step == 0 else ''}train step {step} frames "
                 f"{list(map(int, fids))} wall {wall:.3f} s phases_ms "
                 f"{json.dumps({k: round(v, 3) for k, v in phase_ms.items()})} loss {loss:.6f} "
@@ -747,6 +786,222 @@ def two_garment_run(dev, work: str) -> None:
     compare_composite_tiles("14", fwd)
     compare_composite_bwd("14", fwd + (store["composite_tiles.grad"].contiguous(),
                                        fwd[3].requires_grad))
+
+
+def smoke_conf_without_caps(path: str) -> str:
+    """``configs/synthetic/smoke.conf`` without its ``train.caps`` block,
+    written to ``path``: the scene-derived production caps apply."""
+    from recmv_tpu_torch.config import ConfigFactory, dump_config
+
+    conf = ConfigFactory.parse_file(osp.join(ROOT, "configs", "synthetic", "smoke.conf"))
+    del conf["train"]["caps"]
+    with open(path, "w") as f:
+        f.write(dump_config(conf))
+    return path
+
+
+def cli_run(dev, work: str, uninit_conv: list) -> None:
+    """Phase 15: the training CLI (``recmv_tpu_torch.train.main``) on a
+    synthetic-tube scene of ``CLI_FRAMES`` frames at ``IMAGE``², with
+    ``smoke.conf`` less its caps (production caps, flagship widths): the
+    one-time initialization with ``CLI_INIT_EPOCHS`` IGR epochs and 150
+    curve iterations, ``CLI_STEPS`` steps and ``latest.ckpt``; then a
+    second run resumed from it for ``CLI_RESUME_STEPS`` steps. The
+    kernels' arguments are recorded as in phase 10: K1's before the first
+    step (``initialize_fl``'s gate) and in each step, K2's and K3's of the
+    last step. Prints the initialization's parts, the fitted curves beside
+    the scene's rings, the first remesh, each step's time, K1 launches
+    and converged rays (beside phase 10's, from the uninitialized scene),
+    then holds K1 against its plain version on the gate's arguments and on
+    the last step's three z-buffers, K2 and K3 on its mask composite.
+    Raises on a non-finite output, missing curves or checkpoints, a
+    garment surface outside its clip box, a reload that differs from the
+    saved parameters, a resume at another epoch or step, a step with no
+    converged ray, or a kernel of the path that never launched."""
+    import numpy as np
+    import torch
+
+    from recmv_tpu_torch import bridge
+    from recmv_tpu_torch import train as cli
+    from recmv_tpu_torch.core.network import GarmentOptimNetwork
+    from recmv_tpu_torch.data.synthetic import SCENE_CURVES, boundary_ring, generate_scene
+    from recmv_tpu_torch.models.curves import curves_forward
+    from recmv_tpu_torch.ops import rasterizer
+    from recmv_tpu_torch.ops.composite import composite_tiles, composite_tiles_bwd
+    from recmv_tpu_torch.ops.mesh_raster import mesh_tiles
+    from recmv_tpu_torch.ops.seg3d import final_grid_spacing
+    from recmv_tpu_torch.utils.checkpoint import read_checkpoint
+
+    scene = osp.join(work, "scene")
+    t0 = time.time()
+    generate_scene(scene, n_frames=CLI_FRAMES, image_size=IMAGE, skinner_res=SKINNER_RES,
+                   device=dev)
+    log(f"[15] generated synthetic-tube: {CLI_FRAMES} frames at {IMAGE}² in "
+        f"{time.time() - t0:.1f} s")
+    conf = smoke_conf_without_caps(osp.join(work, "smoke_nocaps.conf"))
+    save = osp.join(scene, "result")
+    latest = osp.join(save, "latest.ckpt")
+    store, k1_calls, gate_calls, steps, first_mesh, loads = {}, [], [], [], [], []
+    train_step = GarmentOptimNetwork.train_step
+    load_checkpoint = GarmentOptimNetwork.load_checkpoint
+
+    def step(self, *args, **kwargs):
+        """``train_step`` timed, with its K1 calls (those before the first
+        step are the gate's) and the mesh of the first remesh kept."""
+        if not steps:
+            gate_calls.extend(k1_calls)
+        k1_calls.clear()
+        at = self.opt_times
+
+        def on_phase(name):
+            if name == "remesh" and self._remeshed_at == at and not first_mesh:
+                m = self.mesh
+                first_mesh.append((list(m.garment_n), list(m.garment_fn),
+                                   [v[:n].detach().clone() for v, n in
+                                    zip(m.garment_vs, m.garment_n)],
+                                   list(self.garment_extract_bboxes)))
+
+        torch.cuda.synchronize()
+        t = time.time()
+        loss, info = train_step(self, *args, timer=on_phase, **kwargs)
+        torch.cuda.synchronize()
+        steps.append(dict(wall=time.time() - t, info=info, at=at, k1=len(k1_calls),
+                          remeshed=self._remeshed_at == at))
+        return loss, info
+
+    def net_params(n):
+        return bridge.export_params(n.params), {k: v.detach().cpu().numpy()
+                                                for k, v in n.params["curves"].items()}
+
+    def saved_leaves(params, curves):
+        """Every saved leaf but the skinner's, as bytes (bit equality)."""
+        nets = sorted(k for k in params if k not in ("curves", "skinner"))
+        return [np.ascontiguousarray(x).tobytes() for x in
+                _leaves({k: params[k] for k in nets}) + [curves[k] for k in sorted(curves)]]
+
+    common = ["--conf", conf, "--data-root", scene, "--device", str(dev), "--quality",
+              CLI_QUALITY]
+    mesh_tiles.launches = composite_tiles.launches = composite_tiles_bwd.launches = 0
+    with rasterizer_kernels(recording(composite_tiles, store, "composite_tiles"),
+                            recording_calls(rasterizer.mesh_tiles, k1_calls)):
+        GarmentOptimNetwork.train_step = step
+        GarmentOptimNetwork.load_checkpoint = recording_results(load_checkpoint, loads)
+        try:
+            t0 = time.time()
+            net = cli.main(common + ["--init-epochs", str(CLI_INIT_EPOCHS), "--max-steps",
+                                     str(CLI_STEPS), "--seed", "0"])
+            wall1 = time.time() - t0
+            for f in ("initial_sdf.ckpt", "latest.ckpt"):
+                if not osp.isfile(osp.join(save, f)):
+                    raise AssertionError(f"the CLI wrote no {f}")
+            # run 1's save, its final parameters and a reload of the save
+            # into run 1's network must agree bit for bit
+            saved = read_checkpoint(latest)
+            want = saved_leaves(saved["params"], saved["params"]["curves"])
+            same = want == saved_leaves(*net_params(net))
+            epoch = load_checkpoint(net, latest)
+            same_load = want == saved_leaves(*net_params(net))
+            t0 = time.time()
+            net2 = cli.main(common + ["--resume", latest, "--max-steps", str(CLI_RESUME_STEPS),
+                                      "--seed", "1"])
+            wall2 = time.time() - t0
+        finally:
+            GarmentOptimNetwork.train_step = train_step
+            GarmentOptimNetwork.load_checkpoint = load_checkpoint
+    torch.cuda.synchronize()
+    launches = {"mesh_tiles": mesh_tiles.launches, "composite_tiles": composite_tiles.launches,
+                "composite_tiles_bwd": composite_tiles_bwd.launches}
+
+    times = net.init_times
+    parts = {k: round(v["seconds"], 3) for k, v in times.items()}
+    igr = {k: dict(ms_per_epoch=round(1e3 * v["seconds"] / v["epochs"], 3),
+                   points=v["points"], last_loss=round(v["loss"], 6))
+           for k, v in times.items() if k.startswith("igr")}
+    log(f"[15] run 1: {wall1:.1f} s; initialization parts_s {json.dumps(parts)} IGR "
+        f"{json.dumps(igr)} Laplacian template verts {times['laplacian']['verts']}")
+    if net.curve_statics is None or not all(math.isfinite(t["last_loss"]) for t in igr.values()):
+        raise AssertionError("the initialization left no curves or a non-finite IGR loss")
+    fit = np.load(osp.join(save, "fl_init", "init_trans_matrix.npz"))
+    cs = net.curve_statics
+    aligned = curves_forward({"scale": torch.ones_like(cs.init_scale),
+                              "nx_scale": torch.zeros_like(cs.init_scale)}, cs).cpu().numpy()
+    rings = {n: (y, off) for n, y, off in SCENE_CURVES["synthetic-tube"]}
+    for i, n in enumerate(cs.fl_names):
+        ring = boundary_ring(rings[n][0], offset=rings[n][1])
+        r_gt = float(np.linalg.norm((ring - ring.mean(0))[:, [0, 2]], axis=1).mean())
+        al = aligned[i]
+        r_fit = float(np.linalg.norm((al - al.mean(0))[:, [0, 2]], axis=1).mean())
+        log(f"[15] curve {n}: T {np.round(fit['T'][i], 5).tolist()} s {float(fit['s'][i]):.5f} "
+            f"fitted radius {r_fit:.5f} scene ring radius {r_gt:.5f} centre y "
+            f"{float(al[:, 1].mean()):.5f} ring y {rings[n][0]:.5f}")
+    log(f"[15] extent rescue fired on {net.fl_rescued}")
+
+    gn, gfn, gvs, boxes = first_mesh[0]
+    spacing = float(max(final_grid_spacing(net.seg3d_cfg)[0]))
+    for gi, v in enumerate(gvs):
+        lo, hi = (torch.as_tensor(b, device=v.device) for b in boxes[gi])
+        out = ((v < lo - spacing) | (v > hi + spacing)).any(1).sum().item()
+        log(f"[15] first remesh, garment {gi}: {gn[gi]} verts {gfn[gi]} faces, extent "
+            f"{v.amin(0).tolist()} .. {v.amax(0).tolist()}, clip box "
+            f"{np.round(boxes[gi][0], 4).tolist()} .. {np.round(boxes[gi][1], 4).tolist()}, "
+            f"verts outside it {out}")
+        if gn[gi] < 1 or out:
+            raise AssertionError("the initialized garment surface is empty or leaves its box")
+
+    k1_per_step = 1 + 2 * net.statics.garment_size
+    convs = []
+    for i, s in enumerate(steps):
+        run, j = (1, i) if i < CLI_STEPS else (2, i - CLI_STEPS)
+        info = s["info"]
+        convs.append(int(sum(info[f"{g}_rayConv"] for g in net.statics.garment_names)))
+        log(f"[15] run {run} step {j} wall {s['wall']:.3f} s"
+            f"{' (remesh)' if s['remeshed'] else ''} mesh_tiles launches {s['k1']} rays "
+            f"converged {convs[-1]} of {int(info['tube_rayBudget'])} loss "
+            f"{info['m_loss_total']:.6f}")
+        bad = {k: v for k, v in info.items() if not math.isfinite(v)}
+        if bad or convs[-1] < 1 or s["k1"] != k1_per_step:
+            raise AssertionError(f"a CLI step had non-finite outputs {bad}, no converged ray or "
+                                 f"{s['k1']} mesh z-buffer launches, not {k1_per_step}")
+    log(f"[15] converged rays per step: initialized {convs} vs phase 10 (uninitialized, "
+        f"shrunk sphere) {uninit_conv}")
+    for n in (net, net2):
+        leaves = list(n.global_leaves().values()) + n.curve_leaves()
+        if not all(bool(torch.isfinite(p).all()) for p in leaves):
+            raise AssertionError("non-finite parameters after the CLI")
+
+    path, resumed_at = loads[-1]
+    log(f"[15] run 2 resumed from {osp.basename(path)} at epoch {resumed_at} step "
+        f"{steps[CLI_STEPS]['at']} (saved: epoch {saved['epoch']}, opt_times "
+        f"{saved['opt_times']}), {wall2:.1f} s; saved equals run 1's final parameters "
+        f"{same}; a reload gives them bit for bit {same_load} (epoch {epoch}, opt_times "
+        f"{net.opt_times})")
+    if (not same or not same_load or not want or epoch != saved["epoch"]
+            or resumed_at != saved["epoch"]
+            or net.opt_times != saved["opt_times"] or steps[CLI_STEPS]["at"] != saved["opt_times"]
+            or len(steps) != CLI_STEPS + CLI_RESUME_STEPS):
+        raise AssertionError("the resumed run does not start from the saved state")
+
+    log(f"[15] launches over both runs {json.dumps(launches)}; mesh_tiles in "
+        f"initialize_fl {len(gate_calls)}")
+    if min(launches.values()) < 1 or not gate_calls:
+        raise AssertionError(f"a kernel of the CLI path never launched: {launches} "
+                             f"{len(gate_calls)}")
+    for i, args in enumerate(gate_calls):
+        compare_mesh_tiles(f"15 initialize_fl z-buffer {i}", args, min_cover=0.002)
+    compare_zbuffers(net2, k1_calls, "15", seeding=True)
+    fwd = store["composite_tiles"]
+    compare_composite_tiles("15", fwd)
+    compare_composite_bwd("15", fwd + (store["composite_tiles.grad"].contiguous(),
+                                       fwd[3].requires_grad))
+
+
+def _leaves(tree) -> list:
+    """The numpy leaves of a nested dict/tuple tree, in key order."""
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in _leaves(tree[k])]
+    if isinstance(tree, (list, tuple)):
+        return [x for v in tree for x in _leaves(v)]
+    return [tree]
 
 
 def branch_backward(net, ds, fids, dev) -> None:
@@ -883,6 +1138,7 @@ def main() -> int:
     # phases 10-13: training with ① (8b: K1 on its recorded ① arguments)
     train_args = {}
     launches = train(net, ds, batches[3:], gen, train_args)
+    uninit_conv = train_args["ray_conv"]
     compare_zbuffers(net, train_args["mesh_tiles_calls"], "8b")
     branch_backward(net, ds, batches[-1], dev)
     fwd = train_args["composite_tiles"]
@@ -894,6 +1150,10 @@ def main() -> int:
 
     # phase 14: the two-garment scene
     two_garment_run(dev, tempfile.mkdtemp(prefix="recmv_chip_smoke_two_"))
+    torch.cuda.empty_cache()
+
+    # phase 15: the training CLI, initialization included
+    cli_run(dev, tempfile.mkdtemp(prefix="recmv_chip_smoke_cli_"), uninit_conv)
 
     sources = {"mesh_tiles": ("recmv_tpu_torch/csrc/mesh_raster.cu",
                               "recmv_tpu/ops/pallas_raster.py:31"),

@@ -10,8 +10,10 @@ marching cubes), the ① curve branch with its visibility gates (body and
 garment z-buffers through the mesh rasterizer), the ② mask branch's
 point-splat render and IoU with its backward, ray seeding through the mesh
 rasterizer, the surface solve, the whole ③ ``main_loss`` through the
-implicit surface adjoint, and the optimizer updates. The initializations
-(which build the curves) are not. The three TPU kernels
+implicit surface adjoint, and the optimizer updates; the one-time scene
+initialization (templates, the curve fit, the Laplacian registration and
+the IGR fits of the SDFs), checkpoints and the training CLI
+(``python -m recmv_tpu_torch.train``). The three TPU kernels
 on that path (the mesh z-buffer, the point composite and its backward) are
 hand-written CUDA C++ for Hopper (``csrc/``), built with ``nvcc`` at first
 use and bound with ctypes (``_build.py``); each sits beside a plain
@@ -34,10 +36,9 @@ _torch.backends.cudnn.allow_tf32 = False
 
 def resolve_device(device=None) -> _torch.device:
     """``device`` as a ``torch.device``; when none is given, the CUDA card.
-    Raises when there is no card and the caller did not name a device: the
-    port runs on the CPU only when asked to."""
-    if device is not None:
-        return _torch.device(device)
-    if not _torch.cuda.is_available():
+    Raises when the device is (or defaults to) the card and there is none:
+    the port runs on the CPU only when asked to."""
+    device = _torch.device("cuda" if device is None else device)
+    if device.type == "cuda" and not _torch.cuda.is_available():
         raise RuntimeError("no CUDA device; pass device='cpu' to run the port on the CPU")
-    return _torch.device("cuda")
+    return device

@@ -144,7 +144,7 @@ def mesh_to_numpy(net) -> tuple:
             [f.cpu().numpy() for f in net.mesh.garment_fs])
 
 
-_CURVE_FIELDS = ("center", "v_dirs", "init_scale", "nx", "cano_smpl_verts")
+CURVE_FIELDS = ("center", "v_dirs", "init_scale", "nx", "cano_smpl_verts")
 
 
 def load_curves(net, params: dict, statics) -> None:
@@ -154,7 +154,7 @@ def load_curves(net, params: dict, statics) -> None:
     get = (lambda k: statics[k]) if isinstance(statics, dict) else (lambda k: getattr(statics, k))
     net.curve_statics = CurveStatics(
         **{k: torch.tensor(np.asarray(get(k), np.float32), device=net.device)
-           for k in _CURVE_FIELDS}, fl_names=tuple(get("fl_names")))
+           for k in CURVE_FIELDS}, fl_names=tuple(get("fl_names")))
     net.params["curves"] = {k: torch.tensor(np.asarray(params[k], np.float32),
                                             device=net.device).requires_grad_()
                             for k in ("scale", "nx_scale")}
@@ -164,6 +164,6 @@ def load_curves(net, params: dict, statics) -> None:
 def export_curves(net) -> tuple:
     """(params, statics) of a port network's curves as numpy dicts."""
     cs = net.curve_statics
-    statics = {k: getattr(cs, k).detach().cpu().numpy() for k in _CURVE_FIELDS}
+    statics = {k: getattr(cs, k).detach().cpu().numpy() for k in CURVE_FIELDS}
     statics["fl_names"] = tuple(cs.fl_names)
     return ({k: v.detach().cpu().numpy() for k, v in net.params["curves"].items()}, statics)

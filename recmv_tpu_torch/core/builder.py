@@ -156,3 +156,7 @@ class _MergedConf:
 
     def get_string(self, path, default=None):
         return self._get("string", path, default)
+
+    def set_loss_block(self, loss):
+        """Make ``loss`` the active loss block (a stage promotion)."""
+        self.loss = loss

@@ -1,7 +1,8 @@
 """Loss terms of the ported slice (counterpart of
 ``recmv_tpu/core/losses.py``): the mask IoU with its pooled gt targets,
 and the terms of ③ ``main_loss``: colour, normal pull-back, SDF shrink,
-eikonal, deformation rigidity and the DCT pose prior."""
+eikonal, deformation rigidity and the DCT pose prior; and the IGR fit
+loss of the SDF initialization."""
 
 from __future__ import annotations
 
@@ -12,9 +13,12 @@ import torch.nn.functional as F
 from ..ops.math3d import gm_robust_error
 
 
-def masked_mean(x, mask, eps: float = 1e-9):
+def masked_mean(x, mask, dim=None, eps: float = 1e-9):
+    """Mean of ``x`` over ``mask``, over all entries or along ``dim``."""
     mask = mask.to(x.dtype)
-    return torch.sum(x * mask) / torch.clamp(torch.sum(mask), min=eps)
+    if dim is None:
+        return torch.sum(x * mask) / torch.clamp(torch.sum(mask), min=eps)
+    return torch.sum(x * mask, dim) / torch.clamp(torch.sum(mask, dim), min=eps)
 
 
 def iou_mask_loss(pred_masks, gt_masks, keep=None):
@@ -77,6 +81,21 @@ def eikonal_loss(grads, valid=None):
     """(‖∇sdf‖ − 1)², mean over ``valid``."""
     vals = (torch.linalg.norm(grads, dim=-1) - 1.0) ** 2
     return torch.mean(vals) if valid is None else masked_mean(vals, valid)
+
+
+def igr_init_loss(sdf_vals_surface, grads_surface, grads_offsurface, normals=None):
+    """IGR fit of an SDF to a surface point set: |sdf| + 0.1·eikonal on the
+    off-surface samples + 1.0·‖∇sdf − n‖ where normals are given. Returns
+    (loss, {manifold, eikonal[, normals]})."""
+    mnfld = torch.mean(torch.abs(sdf_vals_surface))
+    eik = torch.mean((torch.linalg.norm(grads_offsurface, dim=-1) - 1.0) ** 2)
+    loss = mnfld + 0.1 * eik
+    aux = {"manifold": mnfld, "eikonal": eik}
+    if normals is not None:
+        nloss = torch.mean(torch.linalg.norm(grads_surface - normals, dim=-1))
+        loss = loss + 1.0 * nloss
+        aux["normals"] = nloss
+    return loss, aux
 
 
 def sym3x3_eigvalsh(A):

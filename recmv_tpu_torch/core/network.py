@@ -15,12 +15,19 @@ over the mesh vertices) and ``train_step``, which does what the fused
 JAX ``step_fn`` does. ``forward_step`` runs the phases from ② on without
 gradients or updates, with ``idr_color_loss`` for the colour block.
 
-Not ported yet: the initializations, checkpoints and the large-pose
-stage.
+The one-time scene initialization (``initialize_tmp_sdf``: the garment
+templates, the curve fit ``initialize_fl`` through the body z-buffer,
+the Laplacian registration of the templates, ``align_fl`` and the IGR
+fits ``igr_fit_sdf``), the extraction clip boxes it sets, and
+``save_checkpoint``/``load_checkpoint`` (which also read the JAX
+package's checkpoints) are ported too.
+
+Not ported yet: the large-pose stage.
 """
 
 from __future__ import annotations
 
+import os
 import sys
 import time
 from dataclasses import dataclass
@@ -29,11 +36,11 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from .. import resolve_device
-from ..config.constants import CURVE_AWARE, FL_EXTRACT, ZBUF_THRESHOLD
+from .. import bridge, resolve_device
+from ..config.constants import CURVE_AWARE, FL_EXTRACT, INI_FL_SCALE, ZBUF_THRESHOLD
 from ..data.dataset import trainable_mask
 from ..models import camera as cam_mod
-from ..models.curves import curves_forward, curves_regularization, init_curves
+from ..models.curves import CurveStatics, curves_forward, curves_regularization, init_curves
 from ..models.deformer import (InverseFlBody, cardinal_rays_from_jac,
                                deformed_normals_from_grads, deformer_jacobian)
 from ..models.garment_model import ModelStatics, make_deform_fn, scene_camera, split_deform_conds
@@ -45,6 +52,7 @@ from ..native import marching_cubes_host
 from ..ops.math3d import dct_null_space, gm_robust_error
 from ..ops.rasterizer import composite_points, find_surface_points, rasterize_mesh, screen_with_cam_z
 from ..ops.seg3d import Seg3dConfig, final_grid_spacing, seg3d_forward
+from ..utils.checkpoint import read_checkpoint, write_checkpoint
 from . import losses as L
 from . import visibility as V
 from .surface_ps import attach_implicit_surface, optimize_surface_points, ray_constraint
@@ -122,6 +130,10 @@ class GarmentOptimNetwork:
         self.curve_statics = None     # set with params["curves"] by align_fl
         self.inverse_fl_body = None
         self.curve_opt = None
+        self.garment_templates = None       # registered templates (initialize_tmp_sdf)
+        self.garment_extract_bboxes = None  # per garment (bmin, bmax) extraction clip box
+        self.init_times = {}                # seconds per part of the last initialization
+        self.fl_rescued = []                # curves the last curve fit rescued by extent
         p = dataset.params
 
         def t(a):
@@ -133,8 +145,8 @@ class GarmentOptimNetwork:
             "conds": {k: t(v) for k, v in p.conds.items()},
             "camera": {k: t(v) for k, v in p.camera.items()},
         }
-        lr = conf.get_float("train.learning_rate", 1e-4) if "train" in conf else 1e-4
-        self._init_global_opt(lr)
+        self._lr = conf.get_float("train.learning_rate", 1e-4) if "train" in conf else 1e-4
+        self._init_global_opt(self._lr)
         self.vert_opt = None
         self._lr_scale = 1.0
 
@@ -225,22 +237,35 @@ class GarmentOptimNetwork:
     # marching-cube remesh
     # ------------------------------------------------------------------
 
+    def _extract_query(self, net, r, gi):
+        """The field the extraction queries: the SDF, intersected for garment
+        ``gi`` with its clip box (max(sdf, max(pts − bmax, bmin − pts)))
+        where one is recorded. The box keeps far-field zero crossings of a
+        short IGR fit out of the mesh; the losses see the raw SDF."""
+        boxes = self.garment_extract_bboxes
+        if gi is None or not boxes or gi >= len(boxes) or boxes[gi] is None:
+            return lambda pts: sdf_value(net, pts, r)
+        bmin, bmax = (torch.as_tensor(np.asarray(b, np.float32), device=self.device)
+                      for b in boxes[gi])
+        return lambda pts: torch.maximum(sdf_value(net, pts, r),
+                                         torch.maximum(pts - bmax, bmin - pts).amax(-1))
+
     def discretize_sdf(self, ratio, balance_value: float = 0.0, include_body: bool = True):
-        """Seg3d pyramid over each SDF + host marching cubes → per net
-        (verts (V, 3) f32, faces (F, 3) int64) numpy meshes."""
+        """Seg3d pyramid over each SDF (each garment's within its clip box,
+        ``_extract_query``) + host marching cubes → per net (verts (V, 3)
+        f32, faces (F, 3) int64) numpy meshes."""
         cfg = self.seg3d_cfg
         r = _ratio_dict(ratio)["sdfRatio"]
         spacing, origin = final_grid_spacing(cfg)
-        nets = [(n, self.params["garment_sdfs"][i]) for i, n in
+        nets = [(n, self.params["garment_sdfs"][i], i) for i, n in
                 enumerate(self.statics.garment_names)]
         if include_body:
-            nets = [("body", self.params["sdf"])] + nets
+            nets = [("body", self.params["sdf"], None)] + nets
         out = []
-        for name, net in nets:
+        for name, net, gi in nets:
             t0 = time.time()
             with torch.no_grad():
-                vol = seg3d_forward(lambda pts: sdf_value(net, pts, r), cfg,
-                                    device=self.device)
+                vol = seg3d_forward(self._extract_query(net, r, gi), cfg, device=self.device)
             v, f = marching_cubes_host(vol.cpu().numpy(), balance_value,
                                        origin=np.asarray(origin), spacing=np.asarray(spacing),
                                        max_verts=self.cfg.mc_capacity_v,
@@ -262,7 +287,8 @@ class GarmentOptimNetwork:
         """Extract fresh garment meshes into buffers trimmed to the next
         power of two above 1.15x the live count (at least 2048 and the
         capacity floor); padding vertices are zeros and padding faces
-        (0, 0, 0), which the rasterizer skips as degenerate."""
+        (0, 0, 0), which the rasterizer skips as degenerate. The vertex SGD
+        and, where curves exist, the curve AdamW start afresh."""
         fresh_body = self.mesh is None
         meshes = self.discretize_sdf(ratio, -self.sdf_shrink, include_body=fresh_body)
         if fresh_body:
@@ -293,6 +319,8 @@ class GarmentOptimNetwork:
             garment_n=[len(g[0]) for g in garments], garment_fn=[len(g[1]) for g in garments])
         self._remeshed_at = self.opt_times
         self.reset_vertex_optimizer()
+        if self.params.get("curves"):
+            self.reset_curve_optimizer()
 
     def reset_vertex_optimizer(self):
         """SGD(0.05, momentum 0.9) over the mesh vertex buffers, which equals
@@ -1026,3 +1054,377 @@ class GarmentOptimNetwork:
                      for k, v in info.items()}
         self.opt_times += 1.0
         return self.info["m_loss_total"], self.info
+
+    # ------------------------------------------------------------------
+    # one-time initializations
+    # ------------------------------------------------------------------
+
+    def igr_fit_sdf(self, which, verts, normals, nepochs: int = 1200, batch_size: int = 5000,
+                    lr: float = 5e-3, generator=None, draws=None):
+        """IGR fit of one SDF (``which`` = "sdf" or ("garment", i)) to a
+        surface point set with optional normals: per epoch a permutation of
+        the points, per minibatch one Adam step on |sdf| + 0.1·eikonal +
+        normal term (``losses.igr_init_loss``), the eikonal on local
+        (σ 0.01) and global (U(−1.8, 1.8), bs // 6 points) samples. The
+        learning rate is derated for short budgets (≤ 5e-4 below 32
+        epochs, ≤ 2e-3 below 200) and halved every 500 Adam updates; the
+        SDF's output bias first shifts by the mean SDF over the first 4,096
+        points, so the initial surface crosses the data.
+
+        Random draws come from ``generator``; ``draws`` (one dict per epoch:
+        ``perm`` (V,), ``local`` and ``glob`` lists of (bs, 3) normals and
+        (bs // 6, 3) uniforms per minibatch) replaces them. Returns the
+        last minibatch's loss, read from the device once."""
+        net = self.params["sdf"] if which == "sdf" else self.params["garment_sdfs"][which[1]]
+        dev = self.device
+        verts = torch.as_tensor(np.asarray(verts, np.float32), device=dev)
+        normals = (None if normals is None
+                   else torch.as_tensor(np.asarray(normals, np.float32), device=dev))
+        V = verts.shape[0]
+        bs = min(batch_size, V)
+        nb = max(V // bs, 1)
+        if nepochs < 32:
+            lr = min(lr, 5e-4)
+        elif nepochs < 200:
+            lr = min(lr, 2e-3)
+        with torch.no_grad():
+            v0 = sdf_value(net, verts[:min(V, 4096)], -1.0)
+            net.lins[net.n_layers - 2].b[0] -= v0.mean()
+        opt = torch.optim.Adam(net.parameters(), lr=lr, betas=(0.9, 0.999), eps=1e-8)
+        gdev = generator.device if generator is not None else dev
+        loss = None
+        for epoch in range(nepochs):
+            d = draws[epoch] if draws is not None else None
+            perm = (d["perm"] if d is not None
+                    else torch.randperm(V, generator=generator, device=gdev)).to(dev)
+            sel = perm[:nb * bs]
+            evs = verts[sel].reshape(nb, bs, 3)
+            ens = None if normals is None else normals[sel].reshape(nb, bs, 3)
+            for b in range(nb):
+                for group in opt.param_groups:      # optax.exponential_decay(lr, 500, 0.5)
+                    group["lr"] = lr * 0.5 ** ((epoch * nb + b) // 500)
+                if d is not None:
+                    local, glob = d["local"][b].to(dev), d["glob"][b].to(dev)
+                else:
+                    local = torch.randn(bs, 3, generator=generator, device=gdev).to(dev)
+                    glob = (torch.rand(bs // 6, 3, generator=generator, device=gdev) * 3.6
+                            - 1.8).to(dev)
+                pts = evs[b]
+                vals, grads_s = sdf_value_and_gradient(net, pts, -1.0)
+                _, grads_o = sdf_value_and_gradient(net, torch.cat([pts + 0.01 * local, glob]),
+                                                    -1.0)
+                loss, _ = L.igr_init_loss(vals, grads_s, grads_o,
+                                          None if ens is None else ens[b])
+                opt.zero_grad(set_to_none=True)
+                loss.backward()
+                opt.step()
+        opt.zero_grad(set_to_none=True)
+        return None if loss is None else float(loss.detach())
+
+    def initialize_fl(self, fl_template_curves: dict, n_iters: int = 150, lr: float = 5e-3,
+                      cache_path: str | None = None, gate=None):
+        """Fit a rigid translation T and a scale s about its centre to each
+        template curve (name → (S, 3)) against the gt 2D curves of up to 16
+        supervised frames: a trimmed 2D chamfer on the points that a gate
+        frozen at the initial configuration calls visible (the posed body's
+        z-buffer through K1, 0.01 behind it at most); an upward-only
+        closed-form scale rescue from the silhouette widths
+        (``_extent_scale``), after which the rescued curves get a T-only
+        warm-up and a re-frozen gate; T and s jointly, then s alone for
+        max(n//5, 10) steps, each on Adam(lr), s clipped to [0.3, 3].
+
+        ``gate``, a function (T (C, 3), s (C,)) → (N, C·S) bool, replaces
+        the body z-buffer gate. ``cache_path`` is the
+        ``init_trans_matrix.npz`` cache (T, s), read when it exists and
+        written after a fit, in the JAX package's layout. The names of the
+        rescued curves go to ``fl_rescued``. Returns (rigid
+        {name: (T (3,), s ())}, aligned curves {name: (S, 3)}, fl_names),
+        numpy."""
+        dev = self.device
+        fl_names = [n for n in self.dataset.fl_names if n in fl_template_curves]
+        curves0 = torch.as_tensor(np.stack([fl_template_curves[n] for n in fl_names]),
+                                  dtype=torch.float32, device=dev)
+        centers = curves0.mean(1, keepdim=True)
+        C, S, _ = curves0.shape
+
+        def aligned_of(T, s):
+            return (curves0 - centers) * s[:, None, None] + centers + T[:, None, :]
+
+        def result(T, s):
+            al = aligned_of(T, s).cpu().numpy()
+            T, s = T.cpu().numpy(), s.cpu().numpy()
+            return (dict(zip(fl_names, zip(T, s))), dict(zip(fl_names, al)), fl_names)
+
+        if cache_path and os.path.isfile(cache_path):
+            data = np.load(cache_path)
+            return result(torch.as_tensor(data["T"], device=dev),
+                          torch.as_tensor(data["s"], device=dev))
+
+        sup = [i for i, x in enumerate(self.dataset.fl_supervised) if x]
+        sup = sup[:: max(len(sup) // 16, 1)][:16] or [0]
+        batch = self.dataset.get_batch([i - self.dataset.start_idx for i in sup])
+        fl_pts = torch.as_tensor(np.asarray(batch["fl_pts"], np.float32), device=dev)
+        fl_masks = torch.as_tensor(np.asarray(batch["fl_masks"]), device=dev) > 0
+        fids = torch.as_tensor(sup, device=dev)  # scene arrays are indexed globally
+        N = len(sup)
+        sk = self.params["skinner"]
+        with torch.no_grad():
+            cam = self._camera()
+            poses = self.scene["poses"][fids]
+            trans = self.scene["trans"][fids]
+            zbuf = self._body_zbuf_image(fids, cam)[0] if gate is None else None
+        name_to_col = {n: i for i, n in enumerate(self.dataset.fl_names)}
+
+        def screen(T, s):
+            flat = aligned_of(T, s).reshape(1, C * S, 3).expand(N, C * S, 3)
+            return screen_with_cam_z(cam, skinner_apply(sk, flat, poses, trans))
+
+        @torch.no_grad()
+        def frozen_vis(T, s):
+            scr = screen(T, s)
+            return (scr[..., 2] - self._sample_zbuf(zbuf, scr)) < 0.01
+
+        gate = gate or frozen_vis
+
+        def proj_loss(T, s, vis):
+            scr = screen(T, s)
+            loss = 0.0
+            for ci, name in enumerate(fl_names):
+                col = name_to_col[name]
+                sc = scr[:, ci * S:(ci + 1) * S, :2]
+                v = vis[:, ci * S:(ci + 1) * S] & fl_masks[:, col][:, None]
+                d2 = ((sc[:, :, None, :] - fl_pts[:, col][:, None, :, :]) ** 2).sum(-1)
+                m_pg = torch.where(v[:, :, None], d2, 1e12).amin(1)
+                m_gp = d2.amin(2)
+                anyv = v.any(1)
+                # trimmed pred → gt: points beyond 4× the median distance
+                # (the gate's off-silhouette tail) do not pull the ring in
+                cap = 4.0 * _nanmedian(torch.where(v, m_gp, torch.nan).detach(), dim=1)
+                vtrim = v & (m_gp <= torch.where(torch.isnan(cap), 1e12, cap))
+                cham = (L.masked_mean(m_gp, vtrim, dim=1)
+                        + torch.where(anyv, m_pg.mean(1), 0.0))
+                loss = loss + (torch.where(anyv, cham, 0.0).sum()
+                               / torch.clamp(anyv.sum(), min=1).to(torch.float32))
+            return loss
+
+        @torch.no_grad()
+        def extent_scale(T0, s0):
+            """Per curve the median over frames of the gt arc's x-extent
+            over the projected curve's, where it exceeds 1.3, in [0.5, 2.5];
+            else 1."""
+            scr = screen(T0, s0)
+            mults = []
+            for ci, name in enumerate(fl_names):
+                col = name_to_col[name]
+                px = scr[:, ci * S:(ci + 1) * S, 0]
+                gx = fl_pts[:, col, :, 0]
+                ext_p = px.amax(1) - px.amin(1)
+                ext_g = gx.amax(1) - gx.amin(1)
+                ok = fl_masks[:, col] & (ext_p > 1.0) & (ext_g > 1.0)
+                ratio = torch.where(ok, ext_g / torch.clamp(ext_p, min=1.0), 1.0)
+                med = _nanmedian(torch.where(ok, ratio, torch.nan), dim=0)
+                med = torch.where(torch.isnan(med), 1.0, med)
+                med = torch.where(med > 1.3, med, 1.0)
+                mults.append(torch.clamp(med, 0.5, 2.5))
+            return torch.cat(mults)
+
+        def fit(T, s, vis, n, train_T, train_s):
+            T = T.clone().requires_grad_(train_T)
+            s = s.clone().requires_grad_(train_s)
+            leaves = [x for x, on in ((T, train_T), (s, train_s)) if on]
+            opt = torch.optim.Adam(leaves, lr=lr, betas=(0.9, 0.999), eps=1e-8)
+            for _ in range(n):
+                for p, g in zip(leaves, torch.autograd.grad(proj_loss(T, s, vis), leaves)):
+                    p.grad = g
+                opt.step()
+                if train_s:
+                    with torch.no_grad():
+                        s.clamp_(0.3, 3.0)
+            return T.detach(), s.detach()
+
+        T = torch.zeros(C, 3, device=dev)
+        s = torch.tensor([INI_FL_SCALE.get(n, 1.5) for n in fl_names], dtype=torch.float32,
+                         device=dev)
+        mult = extent_scale(T, s)
+        rescued = (mult - 1.0).abs() > 1e-6
+        self.fl_rescued = [n for n, r in zip(fl_names, rescued.tolist()) if r]
+        s = torch.clamp(s * mult, 0.3, 3.0)
+        vis0 = gate(T, s)
+        vis1 = vis0
+        if bool(rescued.any()):
+            T_w, _ = fit(T, s, vis0, max(n_iters // 3, 10), True, False)
+            T = torch.where(rescued[:, None], T_w, T)
+            vis1 = torch.where(rescued[None, :, None], gate(T, s).reshape(N, C, S),
+                               vis0.reshape(N, C, S)).reshape(N, C * S)
+        T, s = fit(T, s, vis1, n_iters, True, True)
+        _, s = fit(T, s, vis1, max(n_iters // 5, 10), False, True)
+        if cache_path:
+            os.makedirs(os.path.dirname(cache_path), exist_ok=True)
+            np.savez(cache_path, T=T.cpu().numpy(), s=s.cpu().numpy())
+        return result(T, s)
+
+    def initialize_tmp_sdf(self, nepochs: int = 1200, save_dir: str | None = None,
+                           with_normals: bool = True, template_dir: str | None = None,
+                           body_normals=None, fl_iters: int = 150, generator=None):
+        """The one-time scene initialization: garment templates from the
+        canonical body (or the ``template_dir`` assets) with
+        ``dense_boundary(2)``; their feature lines, merged (the first
+        garment's wins); ``initialize_fl``; each template's labelled
+        boundary loops matched to the aligned curves and pulled there by
+        ``laplacian_deform(constrain_weight=1, smooth=True)``; ``align_fl``;
+        the body SDF's IGR fit on the body's vertex normals; per garment
+        the closed template, ``max(V, 8192)`` area-weighted surface samples
+        (seed = garment index), its IGR fit and its extraction clip box
+        (the closed template's bbox grown by 20% of its diagonal); and
+        ``initial_sdf.ckpt`` in ``save_dir`` when given. Seconds per part
+        go to ``init_times`` (the IGR fits with their epochs and last
+        loss)."""
+        from ..geometry.laplacian import laplacian_deform
+        from ..geometry.matching import match_template_boundaries
+        from ..geometry.mesh_utils import sample_mesh_surface, vertex_normals
+        from ..models.garment import garment_templates_from_body
+
+        times = self.init_times = {}
+
+        def mark(name, t0, **extra):
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
+            times[name] = dict(seconds=time.time() - t0, **extra)
+
+        t0 = time.time()
+        body_vs = self.tmp_body_vs.cpu().numpy()
+        body_fs = self.tmp_body_fs.cpu().numpy()
+        joints = self.params["skinner"].Js.cpu().numpy()
+        templates = garment_templates_from_body(self.statics.garment_names, body_vs, body_fs,
+                                                joints, template_dir)
+        templates = [t.dense_boundary(2) for t in templates]
+        template_curves = {}
+        for t in templates:
+            for name, curve in t.extract_featurelines().items():
+                template_curves.setdefault(name, curve)
+        mark("templates", t0)
+
+        t0 = time.time()
+        cache = os.path.join(save_dir, "fl_init", "init_trans_matrix.npz") if save_dir else None
+        rigid, aligned_curves, _ = self.initialize_fl(template_curves, n_iters=fl_iters,
+                                                      cache_path=cache)
+        mark("initialize_fl", t0, iters=fl_iters)
+
+        t0 = time.time()
+        for t in templates:
+            cids, targets = match_template_boundaries(t.verts, t.boundary_labels, aligned_curves)
+            if len(cids):
+                t.verts = laplacian_deform(t.verts, t.faces, cids, targets, constrain_weight=1.0,
+                                           smooth=True, device=self.device).cpu().numpy()
+        self.garment_templates = templates
+        mark("laplacian", t0, verts=[len(t.verts) for t in templates])
+
+        self.align_fl(aligned_curves, template_curves, rigid)
+
+        t0 = time.time()
+        if body_normals is None:
+            body_normals = vertex_normals(body_vs, body_fs)
+        loss = self.igr_fit_sdf("sdf", body_vs, body_normals if with_normals else None, nepochs,
+                                generator=generator)
+        mark("igr body", t0, epochs=nepochs, points=len(body_vs), loss=loss)
+        self.garment_extract_bboxes = []
+        for gi, t in enumerate(templates):
+            t0 = time.time()
+            cv, cf, _ = t.close_hole()
+            sp, sn = sample_mesh_surface(cv, cf, max(len(cv), 8192), seed=gi)
+            loss = self.igr_fit_sdf(("garment", gi), sp, sn if with_normals else None, nepochs,
+                                    generator=generator)
+            mark(f"igr {t.name}", t0, epochs=nepochs, points=len(sp), loss=loss)
+            self.garment_extract_bboxes.append(_template_box(cv))
+        if save_dir:
+            self.save_checkpoint(os.path.join(save_dir, "initial_sdf.ckpt"), epoch=0)
+
+    # ------------------------------------------------------------------
+    # checkpoints
+    # ------------------------------------------------------------------
+
+    def save_checkpoint(self, path: str, epoch: int):
+        """Pickle the state as the JAX package does: ``epoch``, ``params``
+        (the nets and the curve leaves in the JAX layout, numpy),
+        ``skinner`` (a dict of arrays), ``scene``, ``opt_times``,
+        ``garment_extract_bboxes``, and where they exist the curve statics
+        (the leaf list and ``curve_fl_names``) and the registered
+        templates."""
+        params = bridge.export_params(self.params)
+        skinner = params.pop("skinner")
+        if self.params.get("curves"):
+            params["curves"] = {k: v.detach().cpu().numpy()
+                                for k, v in self.params["curves"].items()}
+        state = {"epoch": epoch, "params": params, "skinner": skinner,
+                 "scene": bridge.scene_to_numpy(self.scene), "opt_times": self.opt_times,
+                 "garment_extract_bboxes": self.garment_extract_bboxes}
+        if self.curve_statics is not None:
+            cs = self.curve_statics
+            state["curve_statics"] = [getattr(cs, k).detach().cpu().numpy()
+                                      for k in bridge.CURVE_FIELDS]
+            state["curve_fl_names"] = tuple(cs.fl_names)
+        if self.garment_templates:
+            state["garment_templates"] = [
+                {"name": t.name, "verts": np.asarray(t.verts), "faces": np.asarray(t.faces),
+                 "boundary_labels": {k: np.asarray(v) for k, v in t.boundary_labels.items()}}
+                for t in self.garment_templates]
+        write_checkpoint(path, state)
+
+    def load_checkpoint(self, path: str) -> int:
+        """Restore a checkpoint of either package: the nets, the skinner,
+        the scene (leaves and ``dataset.params``), the curves and their
+        statics, the templates, the clip boxes (from the templates where an
+        older checkpoint has none) and ``opt_times``. The global Adam and
+        the curve AdamW start afresh. Returns the saved epoch."""
+        from ..models.garment import GarmentTemplate
+
+        state = read_checkpoint(path)
+        for k, v in state["params"].items():
+            if k == "curves":
+                self.params["curves"] = {
+                    kk: torch.tensor(np.asarray(vv, np.float32), device=self.device
+                                     ).requires_grad_() for kk, vv in v.items()}
+            elif k == "garment_sdfs":
+                for mod, tree in zip(self.params["garment_sdfs"], v, strict=True):
+                    bridge.load_mlp(mod, tree)
+            else:
+                bridge.load_mlp(self.params[k], v)
+        self.params["skinner"] = bridge.skinner_from_jax(state["skinner"], device=self.device)
+        sc = state["scene"]
+        bridge.load_scene(self.scene, sc)
+        sp = self.dataset.params
+        sp.poses, sp.trans, sp.shape = sc["poses"], sc["trans"], sc["shape"]
+        sp.conds, sp.camera = dict(sc["conds"]), dict(sc["camera"])
+        if "curve_statics" in state:
+            self.curve_statics = CurveStatics(
+                *[torch.tensor(np.asarray(x, np.float32), device=self.device)
+                  for x in state["curve_statics"]], fl_names=tuple(state["curve_fl_names"]))
+        if "garment_templates" in state:
+            self.garment_templates = [GarmentTemplate(d["name"], d["verts"], d["faces"],
+                                                      dict(d["boundary_labels"]))
+                                      for d in state["garment_templates"]]
+        self.opt_times = float(state.get("opt_times", 0.0))
+        if state.get("garment_extract_bboxes") is not None:
+            self.garment_extract_bboxes = list(state["garment_extract_bboxes"])
+        elif self.garment_templates:
+            self.garment_extract_bboxes = [_template_box(t.verts) for t in self.garment_templates]
+        self._init_global_opt(self._lr)
+        if self.params.get("curves"):
+            self.reset_curve_optimizer()
+        return state["epoch"]
+
+
+def _nanmedian(x, dim: int):
+    """``jnp.nanmedian`` along ``dim`` (kept): the mean of the two middle
+    values of an even count (``torch.nanmedian`` takes the lower one); NaN
+    where every value is NaN."""
+    return torch.nanquantile(x, 0.5, dim=dim, keepdim=True)
+
+
+def _template_box(verts) -> tuple:
+    """Extraction clip box of a garment: the bbox of its (closed) template
+    grown by 20% of its diagonal → (bmin, bmax) float32."""
+    v = np.asarray(verts)
+    lo, hi = v.min(0), v.max(0)
+    m = 0.2 * float(np.linalg.norm(hi - lo))
+    return (lo - m).astype(np.float32), (hi + m).astype(np.float32)

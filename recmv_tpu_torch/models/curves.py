@@ -10,17 +10,20 @@ leaves are the per-point radial multiplier ``scale`` (init 1) and the
 out-of-plane offset ``nx_scale`` (init 0), each (C, S, 1). All curves are
 one stacked (C, S, ·) tensor.
 
-The patch extraction, the tube meshes and the scale refit wait for the
-initialization and inference code that uses them.
+The tube meshes and the scale refit wait for the inference code that
+uses them.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
 
+import numpy as np
 import torch
 
 from .. import resolve_device
+from ..geometry.mesh_utils import longest_boundary_loop
+from ..geometry.polygons import uniform_sample_3d
 
 
 @dataclass
@@ -33,6 +36,14 @@ class CurveStatics:
     nx: torch.Tensor               # (C, 1, 3) mean plane normal
     cano_smpl_verts: torch.Tensor  # (C, S, 3) pre-alignment body-space curves
     fl_names: tuple
+
+
+def extract_curve_from_patch(verts: np.ndarray, faces: np.ndarray,
+                             sample_num: int = 200) -> np.ndarray:
+    """Template patch → uniform closed curve: the longest boundary loop,
+    resampled to ``sample_num`` points (numpy, as the JAX function)."""
+    loop = longest_boundary_loop(faces, verts)
+    return uniform_sample_3d(verts[loop], sample_num).astype(np.float32)
 
 
 def _stack(curves, device) -> torch.Tensor:

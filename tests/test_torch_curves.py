@@ -671,3 +671,99 @@ def test_curve_branch_reaches_only_the_curves(pair):
         assert torch.equal(p, off.global_leaves()[name]), name
     for a, b in zip(on.mesh.garment_vs, off.mesh.garment_vs):
         assert torch.equal(a, b)
+
+
+# ---------------------------------------------------------------------------
+# (g) the curve AdamW restarts at every remesh
+# ---------------------------------------------------------------------------
+
+def test_remesh_resets_the_curve_optimizer(pair):
+    """(g) ``marching_cube_update`` on a network with curves leaves the
+    curves' AdamW with no state, over the current curve leaves, as the JAX
+    ``marching_cube_update`` re-inits ``curve_opt_state``."""
+    net = copy.deepcopy(pair["net_t"], {id(pair["net_t"].conf): pair["net_t"].conf,
+                                        id(pair["net_t"].full_conf): pair["net_t"].full_conf})
+    for p in net.curve_leaves():
+        p.grad = torch.ones_like(p)
+    net.curve_opt.step()
+    assert len(net.curve_opt.state) == 2
+    net.marching_cube_update(RATIO)
+    assert len(net.curve_opt.state) == 0
+    held = [p for g in net.curve_opt.param_groups for p in g["params"]]
+    assert all(a is b for a, b in zip(held, net.curve_leaves())) and len(held) == 2
+
+
+def test_step_remesh_step_matches_jax(pair):
+    """(g) From one state (the JAX package's parameters, scene, curves and
+    mesh, fresh optimizers) on the tube scene outside the fine stage: a
+    training step, a forced remesh (the port then takes the JAX values of
+    the parameters, scene and curves in place, and the JAX mesh, so that
+    both step from the same point) and a second step, with the JAX draws
+    replayed, against the JAX package's three calls. The curves after
+    each step as ``test_train_step_with_curves_matches_jax`` holds them:
+    entries whose JAX step is at least lr/2 (and whose gradient is above
+    1e-3 of the leaf's largest) within 2e-2 of lr. With the curve AdamW's
+    moments carried over the remesh, the second step's update of an entry
+    whose gradient changed differs by more than that."""
+    net_j, net_t, batch = pair["net_j"], pair["net_t"], pair["batch"]
+    for net in (net_j, net_t):
+        net.dataset.garment_type, net.isfine = "synthetic-tube", False
+    bridge.load_jax_params(net_t.params, _np_tree(
+        {k: net_j.params[k] for k in ("sdf", "garment_sdfs", "translator", "render",
+                                      "skinner")}))
+    bridge.load_scene(net_t.scene, _np_tree(net_j.scene_tree()))
+    bridge.load_curves(net_t, _np_tree(net_j.params["curves"]), net_j.curve_statics)
+    bridge.load_mesh(net_t, net_j.mesh.garment_vs, net_j.mesh.garment_fs,
+                     net_j.mesh.garment_n, net_j.mesh.garment_fn)
+    net_j._init_global_opt()
+    net_j.vert_opt_state = net_j.vert_opt.init(tuple(net_j.mesh.garment_vs))
+    net_t._init_global_opt(net_t._lr)
+    net_t.opt_times, net_t._remeshed_at = net_j.opt_times, net_j._remeshed_at
+    assert net_t._curve_aware_target() is None
+    lr_c = float(net_t.curve_opt.param_groups[0]["lr"])
+    s = net_t.cfg.seed_downscale
+    budget = max(net_t.cfg.sample_pix, 1) * len(FIDS)
+    grads = {}
+
+    def keep(opt):
+        step = opt.step
+
+        def call():
+            grads.update({id(p): p.grad.clone() for g in opt.param_groups for p in g["params"]})
+            return step()
+        return call
+
+    for step in range(2):
+        if step == 1:
+            # both packages step again from the JAX values (in place: the
+            # optimizers keep their state), on a fresh remesh
+            bridge.load_jax_params(net_t.params, _np_tree(
+                {k: net_j.params[k] for k in ("sdf", "garment_sdfs", "translator", "render",
+                                              "skinner")}))
+            bridge.load_scene(net_t.scene, _np_tree(net_j.scene_tree()))
+            with torch.no_grad():
+                for k, p in net_t.params["curves"].items():
+                    p.copy_(torch.as_tensor(np.asarray(net_j.params["curves"][k])))
+            assert len(net_t.curve_opt.state) == 2
+            net_j.marching_cube_update(RATIO)
+            net_t.marching_cube_update(RATIO)
+            assert len(net_t.curve_opt.state) == 0
+            bridge.load_mesh(net_t, net_j.mesh.garment_vs, net_j.mesh.garment_fs,
+                             net_j.mesh.garment_n, net_j.mesh.garment_fn)
+        c0 = {k: np.asarray(net_j.params["curves"][k]) for k in ("scale", "nx_scale")}
+        key = jax.random.PRNGKey(KEY + 2 + step)
+        uniforms, key_m = _seed_uniforms(key, 1, len(FIDS) * (IMG // s) ** 2)
+        draws = {"uniforms": uniforms, "main": _main_draws(net_j, key_m, budget)}
+        net_j.train_step(batch, FIDS, RATIO, key)
+        with pytest.MonkeyPatch.context() as mp:
+            mp.setattr(net_t.curve_opt, "step", keep(net_t.curve_opt))
+            net_t.train_step(batch, FIDS, RATIO, draws=draws)
+        for k in ("scale", "nx_scale"):
+            p = net_t.params["curves"][k]
+            dj = np.asarray(net_j.params["curves"][k]) - c0[k]
+            dt = p.detach().numpy() - c0[k]
+            g = grads[id(p)].abs().numpy()
+            big = (g > 1e-3 * g.max()) & (np.abs(dj) > 0.5 * lr_c)
+            assert big.sum() > 100, (step, k)
+            np.testing.assert_allclose(dt[big], dj[big], atol=2e-2 * lr_c, rtol=0,
+                                       err_msg=f"step {step} {k}")

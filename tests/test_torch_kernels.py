@@ -747,7 +747,7 @@ def test_build_compiles_only_the_ports_sources(monkeypatch):
 
 
 @pytest.mark.parametrize("entry", ["generate_scene", "build_opt_net", "GarmentOptimNetwork",
-                                   "skinner_from_jax", "scene_from_jax"])
+                                   "skinner_from_jax", "scene_from_jax", "laplacian_deform"])
 def test_entry_points_need_a_card_or_a_device(monkeypatch, tmp_path, entry):
     """The port's entry points run on the card when no device is given,
     and raise (never fall back to the CPU) when there is no card. The
@@ -756,12 +756,15 @@ def test_entry_points_need_a_card_or_a_device(monkeypatch, tmp_path, entry):
     from recmv_tpu_torch.core.builder import build_opt_net
     from recmv_tpu_torch.core.network import GarmentOptimNetwork
     from recmv_tpu_torch.data.synthetic import generate_scene
+    from recmv_tpu_torch.geometry.laplacian import laplacian_deform
 
     call = {"generate_scene": lambda: generate_scene(str(tmp_path / "scene")),
             "build_opt_net": lambda: build_opt_net(None, None, str(tmp_path)),
             "GarmentOptimNetwork": lambda: GarmentOptimNetwork(None, None, {}, None, None),
             "skinner_from_jax": lambda: bridge.skinner_from_jax({}),
-            "scene_from_jax": lambda: bridge.scene_from_jax({})}[entry]
+            "scene_from_jax": lambda: bridge.scene_from_jax({}),
+            "laplacian_deform": lambda: laplacian_deform(np.zeros((3, 3)), [[0, 1, 2]], [0],
+                                                         np.zeros((1, 3)))}[entry]
     if not torch.cuda.is_available():          # no card here: the default must raise
         with pytest.raises(RuntimeError, match="no CUDA device"):
             call()
