@@ -87,14 +87,41 @@ Phases, one printed line each (or more):
     garment surface outside its clip box (by more than a grid cell), a
     reload that differs from the saved parameters by a bit, a resume at
     another epoch or step count, a step with no converged ray or other
-    than three K1 launches, or a kernel of the path that never launched.
+    than three K1 launches, or a kernel of the path that never launched;
+16. inference on phase 15's fitted scene through the inference CLIs, in
+    process, with the kernels' launch counts set to 0 before and read
+    after: ``recmv_tpu_torch.infer.main`` on frames 0 and 1 (registration
+    at the production NRICP schedules, 200 + 100 epochs; images and
+    colours), ``--curves-only`` on the same frames, and
+    ``recmv_tpu_torch.infer_animation.main`` on an 8-pose motion (the
+    A-pose under a yaw sweep) in a directory holding the registration.
+    It prints the registration's seconds by stage (Laplacian alignment,
+    visibility scan, NRICP coarse, remesh, NRICP refine), its vertex and
+    face counts and surviving boundary labels, the one-sided mean
+    distance from the registered vertices to the MC vertices, maskE per
+    frame, the colour pass's hit and converged pixels and seconds,
+    seconds per exported and per animated frame, K1's launches and the
+    tiles at the cap by kind (the 12-view 512² scan, the 1080² frames),
+    with the card's name and power limit; then K1 against its plain
+    version on the scan's arguments and on the first 1080² Phong
+    z-buffer, as in phase 8, and the whole visibility scan with the
+    kernels and with the plain versions, which must mark the same
+    vertices; then the scan and frame 0's Phong render again at a mesh
+    cap of 4,096, with the vertices and pixels that change; last,
+    ``infer.main`` with ``--quality higher --curves-only``: the 513³
+    extraction of a fresh body and garments into the host path's
+    buffers, with its counts and seconds. It raises on a missing export,
+    a non-finite or empty result, a registration farther than 0.05 from
+    the MC surface on average, a ``higher`` garment with no more vertices
+    than the coarse one, or a kernel of the path that never launched.
 
 A kernel's bound is the larger of the bytes it must move (each input
 read once: the listed candidates, the counts, the upstream gradient;
 each output written once) over 3.35 TB/s and the operations the live
 pairs need over 67 TFLOP/s (H100 SXM float32, published peaks). Then a
 JSON line with each kernel's record (launches from the training run of
-phase 10; error, times and bound from phases 8 and 12; no PyTorch call
+phase 10, K1's with phase 16's added; error, times and bound from phases
+8 and 12; no PyTorch call
 computes these functions, so ``library_ms`` is null), the card's name and
 power limit, and last ``{"ok": true, "device": {...}}``. Any failure
 raises and the exit code is not 0. Without CUDA it exits with 2 before
@@ -105,6 +132,7 @@ from __future__ import annotations
 import contextlib
 import json
 import math
+import os
 import os.path as osp
 import subprocess
 import sys
@@ -120,6 +148,10 @@ TWO_IMAGE, TWO_FRAMES = 540, 8  # the two-garment phase's scene
 CLI_FRAMES, CLI_INIT_EPOCHS = 16, 60   # the CLI phase: smoke.conf's initial_iters
 CLI_STEPS, CLI_RESUME_STEPS = 4, 2
 CLI_QUALITY = "coarse"                 # the CLI's default pyramid
+INFER_FRAMES = (0, 1)                  # the inference phase's exported frames
+ANIM_POSES = 8                         # the animation's motion
+REG_DIST_BOUND = 0.05                  # mean registered -> MC distance the phase accepts
+CAP_PROBE = 4096                       # the larger mesh cap phase 16 compares with
 SKINNER_RES = (129, 225, 65)
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory, published peak
 FP32_FLOP_PER_S = 67e12        # H100 SXM float32 outside the tensor cores, published peak
@@ -800,7 +832,7 @@ def smoke_conf_without_caps(path: str) -> str:
     return path
 
 
-def cli_run(dev, work: str, uninit_conv: list) -> None:
+def cli_run(dev, work: str, uninit_conv: list) -> str:
     """Phase 15: the training CLI (``recmv_tpu_torch.train.main``) on a
     synthetic-tube scene of ``CLI_FRAMES`` frames at ``IMAGE``², with
     ``smoke.conf`` less its caps (production caps, flagship widths): the
@@ -993,6 +1025,238 @@ def cli_run(dev, work: str, uninit_conv: list) -> None:
     compare_composite_tiles("15", fwd)
     compare_composite_bwd("15", fwd + (store["composite_tiles.grad"].contiguous(),
                                        fwd[3].requires_grad))
+    return scene
+
+
+def animation_motion(path: str) -> str:
+    """An ``ANIM_POSES``-pose motion for ``infer_animation``: the synthetic
+    A-pose turned by a yaw sweep over one revolution, no translation,
+    written to ``path`` as the ``.npz`` the CLI reads."""
+    import numpy as np
+
+    from recmv_tpu_torch.data.synthetic import apose
+
+    poses = np.stack([apose()] * ANIM_POSES)
+    poses[:, 0, 1] = np.linspace(0.0, 2 * np.pi, ANIM_POSES, endpoint=False)
+    np.savez(path, pose=poses.reshape(ANIM_POSES, 72),
+             trans=np.zeros((ANIM_POSES, 3), np.float32))
+    return path
+
+
+def k1_recorder(calls: list, kept: dict):
+    """``mesh_tiles`` that also notes, per call, its frames, tiles, cap
+    and tiles at the cap, and keeps the arguments of the first call of
+    each kind in ``kept``: the visibility scan (12 frames) and the first
+    one-frame z-buffer at the scene's size (the Phong render of the
+    registered garment)."""
+    from recmv_tpu_torch.ops.mesh_raster import mesh_tiles
+
+    def call(*args):
+        prm, _, cnt, Wt, _ = args
+        B, T, _, cap = prm.shape
+        kind = "scan" if B == 12 else "frame" if B == 1 else f"{B} frames"
+        calls.append(dict(kind=kind, tiles=B * T, cap=cap, at_cap=int((cnt >= cap).sum())))
+        if kind not in kept:
+            kept[kind] = args
+        return mesh_tiles(*args)
+
+    return call
+
+
+def infer_run(dev, scene: str) -> int:
+    """Phase 16: inference on phase 15's fitted scene (``result/latest.ckpt``)
+    through the CLIs, in process: ``infer.main`` on frames 0 and 1 with
+    images and colours at the production NRICP schedules (200 + 100
+    epochs), ``--curves-only`` on the same frames, then
+    ``infer_animation.main`` on an ``ANIM_POSES``-pose motion, in a
+    directory that holds the first run's registration (a cache hit). The
+    kernels' launch counts are set to 0 before the first run and read
+    after the last. Prints the registration's seconds by stage, its
+    vertex and face counts and surviving boundary labels, the one-sided
+    mean distance from the registered vertices to the MC vertices, maskE
+    per frame, the colour pass's hit and converged pixels and seconds,
+    seconds per exported and per animated frame, K1's launches and the
+    tiles at the cap, each with the card's name and power limit. Then K1
+    against its plain version on the scan (12 views at 512²) and on the
+    first 1080² Phong z-buffer, and the whole scan with the kernels and
+    with the plain versions: the same visible vertices. Then the scan and
+    frame 0's Phong render at cap ``CAP_PROBE``: the vertices and pixels
+    the cap of 512 changes (``PERF.md`` §7). Last, ``--quality higher``
+    with ``--curves-only`` on frame 0: the 513³ extraction of a fresh body
+    and garments into the host path's buffers (2^22 vertices, 2^23
+    faces). Raises on a missing export, a non-finite or empty result, a
+    registration farther than ``REG_DIST_BOUND`` from the surface on
+    average, a ``higher`` garment with no more vertices than the coarse
+    one, or a kernel of the path that never launched. Returns K1's
+    launches on the inference path."""
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from recmv_tpu_torch import infer, infer_animation
+    from recmv_tpu_torch.core.inference import visible_vertex_mask
+    from recmv_tpu_torch.geometry.mesh_utils import largest_component
+    from recmv_tpu_torch.ops.composite import composite_tiles, composite_tiles_bwd
+    from recmv_tpu_torch.ops.knn import knn
+    from recmv_tpu_torch.ops.mesh_raster import _mesh_tiles_torch, mesh_tiles
+
+    card = card_line()
+    out = osp.join(scene, "result", "infer")
+    anim = osp.join(scene, "result", "animation")
+    common = ["--data-root", scene, "--device", str(dev), "--quality", CLI_QUALITY,
+              "--frames"] + [str(f) for f in INFER_FRAMES]
+    calls, kept = [], {}
+    mesh_tiles.launches = composite_tiles.launches = composite_tiles_bwd.launches = 0
+    with rasterizer_kernels(composite_tiles, k1_recorder(calls, kept)):
+        torch.cuda.synchronize()
+        t0 = time.time()
+        inf = infer.main(common + ["--out", out])
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+        n_infer = len(calls)
+        t0 = time.time()
+        infer.main(common + ["--out", out, "--curves-only"])
+        wall_fl = time.time() - t0
+        os.makedirs(anim, exist_ok=True)
+        for g in inf.net.statics.garment_names:
+            for f in (f"registry_{g}.obj", f"registry_{g}_labels.npz"):
+                shutil.copy(osp.join(out, f), anim)
+        t0 = time.time()
+        anim_inf = infer_animation.main(["--data-root", scene, "--device", str(dev),
+                                         "--quality", CLI_QUALITY, "--out", anim, "--motion",
+                                         animation_motion(osp.join(scene, "motion.npz"))])
+        torch.cuda.synchronize()
+        wall_anim = time.time() - t0
+    launches = {"mesh_tiles": mesh_tiles.launches, "composite_tiles": composite_tiles.launches,
+                "composite_tiles_bwd": composite_tiles_bwd.launches}
+
+    net = inf.net
+    names = list(net.statics.garment_names)
+    for gi, g in enumerate(names):
+        secs = {k: round(v, 3) for k, v in inf.registration_times[g].items()}
+        rv, rf = inf.registered[g]
+        with np.load(osp.join(out, f"registry_{g}_labels.npz")) as z:
+            labels = {k: len(z[k]) for k in z.files}
+        n, nf = net.mesh.garment_n[gi], net.mesh.garment_fn[gi]
+        mc_v, mc_f = largest_component(net.mesh.garment_vs[gi][:n].detach().cpu().numpy(),
+                                       net.mesh.garment_fs[gi][:nf].cpu().numpy())
+        with torch.no_grad():
+            d2, _ = knn(torch.as_tensor(rv, device=dev), torch.as_tensor(mc_v, device=dev))
+            dist = torch.sqrt(d2).mean().item()
+        tmpl = net.garment_templates[gi]
+        log(f"[16] registration {g} ({card}): seconds by stage {json.dumps(secs)} total "
+            f"{sum(secs.values()):.3f}; template {len(tmpl.verts)} verts {len(tmpl.faces)} "
+            f"faces -> registered {len(rv)} verts {len(rf)} faces, boundary labels "
+            f"{json.dumps(labels)} (template {sorted(tmpl.boundary_labels)}); MC target "
+            f"{len(mc_v)} verts {len(mc_f)} faces; one-sided mean distance registered -> MC "
+            f"{dist:.6f}")
+        if (not np.isfinite(rv).all() or len(rv) <= len(tmpl.verts) or not labels
+                or not dist < REG_DIST_BOUND):
+            raise AssertionError(f"the registration of {g} failed: {len(rv)} verts, labels "
+                                 f"{labels}, distance {dist}")
+
+    frames = len(INFER_FRAMES)
+    stats = inf.stats
+    mask_e = np.load(osp.join(out, "maskE.npy"))
+    secs = {k: round(v, 3) for k, v in stats["seconds"].items()}
+    log(f"[16] export ({card}): {frames} frames in {wall:.1f} s with the registration; "
+        f"seconds by family {json.dumps(secs)}, {sum(secs.values()) / frames:.3f} s per "
+        f"exported frame; maskE {np.round(mask_e, 5).tolist()}")
+    for c in stats["colors"]:
+        log(f"[16] colour pass ({card}): frame {c['frame']} {c['garment']}: hit pixels "
+            f"{c['hit']} converged {c['converged']} ({c['converged'] / max(c['hit'], 1):.4f})")
+    log(f"[16] colour pass seconds {secs['colors']:.3f} ({secs['colors'] / frames:.3f} per "
+        f"frame); curves-only run {wall_fl:.1f} s; animation {ANIM_POSES} poses in "
+        f"{wall_anim:.1f} s with the network's load ({card})")
+    want = {"meshs": 2 * frames * len(names), "smpl_meshs": frames, "render": frames,
+            "def1meshs": frames * len(names), "colors": frames * len(names),
+            "fl_meshs": frames * len(net.curve_statics.fl_names)}
+    got = {k: len(os.listdir(osp.join(out, k))) for k in want}
+    n_anim = len([f for f in os.listdir(anim) if f.endswith(".obj") and "registry" not in f])
+    log(f"[16] files {json.dumps(got)}; animation meshes {n_anim}; registration cache hit in "
+        f"the animation {not anim_inf.registration_times}")
+    if (got != want or n_anim != ANIM_POSES * len(names) or anim_inf.registration_times
+            or not ((mask_e >= 0) & (mask_e <= 1)).all()
+            or min(c["hit"] for c in stats["colors"]) < 1):
+        raise AssertionError(f"inference exports missing or wrong: {got} vs {want}, "
+                             f"{n_anim} animation meshes, maskE {mask_e}")
+
+    by_kind = {}
+    for c in calls:
+        k = by_kind.setdefault(c["kind"], dict(launches=0, tiles=0, at_cap=[], cap=c["cap"]))
+        k["launches"] += 1
+        k["tiles"] += c["tiles"]
+        k["at_cap"].append(c["at_cap"])
+    log(f"[16] K1 on the inference path ({card}): launches {launches['mesh_tiles']} ({n_infer} "
+        f"in the export run, {len(calls) - n_infer} in the curves-only and animation runs); "
+        f"by kind {json.dumps(by_kind)}; composite launches "
+        f"{launches['composite_tiles']}/{launches['composite_tiles_bwd']}")
+    if launches["mesh_tiles"] < 1 or "scan" not in kept or "frame" not in kept:
+        raise AssertionError(f"K1 never launched on the inference path: {launches} "
+                             f"{sorted(kept)}")
+
+    compare_mesh_tiles("16 visibility scan", kept["scan"], min_cover=0.01)
+    compare_mesh_tiles(f"16 Phong z-buffer {IMAGE}", kept["frame"], min_cover=0.005)
+    n, nf = net.mesh.garment_n[0], net.mesh.garment_fn[0]
+    mc_v, mc_f = largest_component(net.mesh.garment_vs[0][:n].detach().cpu().numpy(),
+                                   net.mesh.garment_fs[0][:nf].cpu().numpy())
+    vis_k = visible_vertex_mask(mc_v, mc_f, device=dev)
+    with rasterizer_kernels(composite_tiles, _mesh_tiles_torch):
+        vis_p = visible_vertex_mask(mc_v, mc_f, device=dev)
+    log(f"[16] visible_vertex_mask with kernels vs plain versions: {int(vis_k.sum())} vs "
+        f"{int(vis_p.sum())} of {len(vis_k)} vertices, same mask "
+        f"{bool(np.array_equal(vis_k, vis_p))}")
+    if not np.array_equal(vis_k, vis_p):
+        raise AssertionError("the visibility scan differs between K1 and its plain version")
+
+    # the cap at inference (PERF.md §7): the scan and frame 0's Phong render
+    # again with the cap raised to CAP_PROBE
+    from recmv_tpu_torch.core import inference
+
+    raster = inference.rasterize_mesh
+    inference.rasterize_mesh = lambda *a, **k: raster(*a, **dict(k, cap=CAP_PROBE))
+    try:
+        vis_w = visible_vertex_mask(mc_v, mc_f, device=dev)
+    finally:
+        inference.rasterize_mesh = raster
+    rv, rf = inf.registered[names[0]]
+    color = inf._garment_color(0)
+    cap = net.cfg.raster_cap_mesh
+    with torch.no_grad():
+        posed = inf._deform(rv, 0, [INFER_FRAMES[0]], {"sdfRatio": 1.0, "deformerRatio": 1.0,
+                                                        "renderRatio": 1.0})[0]
+        img, hit = inf._phong_u8(net._camera(), posed, rf, color)
+        net.cfg.raster_cap_mesh = CAP_PROBE
+        try:
+            img_w, hit_w = inf._phong_u8(net._camera(), posed, rf, color)
+        finally:
+            net.cfg.raster_cap_mesh = cap
+    log(f"[16] cap {CAP_PROBE} in place of {cap} ({card}): the scan marks "
+        f"{int((vis_w != vis_k).sum())} of {len(vis_k)} vertices otherwise ({int(vis_w.sum())} "
+        f"vs {int(vis_k.sum())} seen); frame {INFER_FRAMES[0]}'s Phong render of {names[0]} "
+        f"changes {int((img_w != img).any(-1).sum())} of {img.shape[0] * img.shape[1]} pixels "
+        f"({int((hit_w != hit).sum())} in coverage)")
+
+    t0 = time.time()
+    hi = infer.main(["--data-root", scene, "--device", str(dev), "--quality", "higher",
+                     "--frames", str(INFER_FRAMES[0]), "--curves-only", "--out",
+                     osp.join(scene, "result", "infer_higher")]).net
+    torch.cuda.synchronize()
+    wall_hi = time.time() - t0
+    coarse = list(zip(net.mesh.garment_n, net.mesh.garment_fn))
+    fine = list(zip(hi.mesh.garment_n, hi.mesh.garment_fn))
+    log(f"[16] --quality higher ({card}): grid {hi.seg3d_cfg.resolutions[-1]}, body "
+        f"{hi.mesh.body_n} verts, garments (verts, faces) {fine} against {coarse} at "
+        f"{CLI_QUALITY}, buffers {[v.shape[0] for v in hi.mesh.garment_vs]}; {wall_hi:.1f} s "
+        f"with the network's load and the curve tubes")
+    if (hi.mesh.body_n < 1 or any(h <= c for (h, _), (c, _) in zip(fine, coarse))
+            or not all(torch.isfinite(v[:n]).all().item()
+                       for v, n in zip(hi.mesh.garment_vs, hi.mesh.garment_n))):
+        raise AssertionError(f"the --quality higher extraction failed: body {hi.mesh.body_n}, "
+                             f"garments {fine} against {coarse}")
+    del hi
+    return launches["mesh_tiles"]
 
 
 def _leaves(tree) -> list:
@@ -1059,6 +1323,7 @@ def main() -> int:
     from recmv_tpu_torch.ops.composite import _composite_tiles_torch, composite_tiles
     from recmv_tpu_torch.ops.mesh_raster import _mesh_tiles_torch, mesh_tiles
 
+    t_start = time.time()
     dev = torch.device("cuda:0")
     card = card_line()
     log(f"[0] torch {torch.__version__} cuda {torch.version.cuda} device "
@@ -1153,7 +1418,11 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # phase 15: the training CLI, initialization included
-    cli_run(dev, tempfile.mkdtemp(prefix="recmv_chip_smoke_cli_"), uninit_conv)
+    scene = cli_run(dev, tempfile.mkdtemp(prefix="recmv_chip_smoke_cli_"), uninit_conv)
+    torch.cuda.empty_cache()
+
+    # phase 16: inference on the fitted scene; K1's launches there count
+    launches["mesh_tiles"] += infer_run(dev, scene)
 
     sources = {"mesh_tiles": ("recmv_tpu_torch/csrc/mesh_raster.cu",
                               "recmv_tpu/ops/pallas_raster.py:31"),
@@ -1163,6 +1432,7 @@ def main() -> int:
                                        "recmv_tpu/ops/pallas_composite.py:88")}
     kernels = [dict(name=n, route="cuda", source=sources[n][0], replaces=sources[n][1],
                     launches=launches[n], **kres[n]) for n in sources]
+    log(f"[end] chip_smoke ran {time.time() - t_start:.1f} s, the build included")
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -5,9 +5,11 @@ checkout, into ``recmv_tpu_torch/_build/`` (listed in ``.gitignore``).
   for ``sm_90a`` into one shared library with a plain C interface and
   loaded with ctypes. Each C entry point launches on the stream it is
   given and returns ``cudaGetLastError()``.
-- ``meshops()``: the host C++ marching cubes, compiled by ``g++`` from
-  ``csrc/meshops.cpp``, the port's copy of
-  ``recmv_tpu/native/meshops.cpp``.
+- ``meshops()``: the host C++ marching cubes and isotropic remesher,
+  compiled by ``g++`` from ``csrc/meshops.cpp``, the port's copy of
+  ``recmv_tpu/native/meshops.cpp``, with the JAX package's flags
+  (``-march=native`` among them: both builds contract the same
+  multiply-adds, so both give the same arrays on one machine).
 
 Every source compiled here lies under ``recmv_tpu_torch/csrc/``.
 
@@ -37,7 +39,7 @@ MESHOPS_SRC = osp.join(CSRC, "meshops.cpp")
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-fmad=false", "-Xptxas", "-v"]
-GXX_FLAGS = ["-O3", "-fPIC", "-std=c++17"]
+GXX_FLAGS = ["-O3", "-march=native", "-fPIC", "-std=c++17"]
 
 _LIBS: dict = {}
 
@@ -115,7 +117,8 @@ def kernels_build_log() -> str:
 
 
 def meshops() -> ctypes.CDLL:
-    """The host marching-cubes library (built on first call)."""
+    """The host marching-cubes and remeshing library (built on first
+    call)."""
     if "meshops" not in _LIBS:
         import numpy as np
 
@@ -128,6 +131,9 @@ def meshops() -> ctypes.CDLL:
         lib.mc_run.restype = i64
         lib.mc_run.argtypes = [f32p, i64, i64, i64, ctypes.c_float, f32p, f32p,
                                i32p, i32p, f32p, i64, i32p, i64, i64p]
+        lib.isotropic_remesh.restype = i64
+        lib.isotropic_remesh.argtypes = [f32p, i64, i32p, i64, ctypes.c_float,
+                                         ctypes.c_int32, f32p, i64, i32p, i64, i64p]
         _LIBS["meshops"] = lib
     return _LIBS["meshops"]
 

@@ -20,7 +20,10 @@ templates, the curve fit ``initialize_fl`` through the body z-buffer,
 the Laplacian registration of the templates, ``align_fl`` and the IGR
 fits ``igr_fit_sdf``), the extraction clip boxes it sets, and
 ``save_checkpoint``/``load_checkpoint`` (which also read the JAX
-package's checkpoints) are ported too.
+package's checkpoints) are ported too, and for inference the extraction
+of ``--quality higher`` (``marching_cube_update(higher=True)``: a fresh
+body and the JAX host path's buffers) and the scene's exchange with
+``dataset.params`` (``sync_scene_to_dataset``, ``invalidate_scene``).
 
 Not ported yet: the large-pose stage.
 """
@@ -250,10 +253,12 @@ class GarmentOptimNetwork:
         return lambda pts: torch.maximum(sdf_value(net, pts, r),
                                          torch.maximum(pts - bmax, bmin - pts).amax(-1))
 
-    def discretize_sdf(self, ratio, balance_value: float = 0.0, include_body: bool = True):
+    def discretize_sdf(self, ratio, balance_value: float = 0.0, include_body: bool = True,
+                       max_verts: int | None = None, max_faces: int | None = None):
         """Seg3d pyramid over each SDF (each garment's within its clip box,
         ``_extract_query``) + host marching cubes → per net (verts (V, 3)
-        f32, faces (F, 3) int64) numpy meshes."""
+        f32, faces (F, 3) int64) numpy meshes. The marching cubes' buffers
+        are ``mc_capacity_v``/``_f`` unless given."""
         cfg = self.seg3d_cfg
         r = _ratio_dict(ratio)["sdfRatio"]
         spacing, origin = final_grid_spacing(cfg)
@@ -268,8 +273,8 @@ class GarmentOptimNetwork:
                 vol = seg3d_forward(self._extract_query(net, r, gi), cfg, device=self.device)
             v, f = marching_cubes_host(vol.cpu().numpy(), balance_value,
                                        origin=np.asarray(origin), spacing=np.asarray(spacing),
-                                       max_verts=self.cfg.mc_capacity_v,
-                                       max_faces=self.cfg.mc_capacity_f)
+                                       max_verts=max_verts or self.cfg.mc_capacity_v,
+                                       max_faces=max_faces or self.cfg.mc_capacity_f)
             sys.stderr.write(f"[net] extract {name}: {time.time() - t0:.1f}s nv={len(v)}\n")
             out.append((v, f))
         return out
@@ -283,14 +288,22 @@ class GarmentOptimNetwork:
         est = 1.2 * cells ** (2.0 / 3.0) / max(1, self.statics.garment_size)
         return 1 << int(np.ceil(np.log2(est)))
 
-    def marching_cube_update(self, ratio):
+    def marching_cube_update(self, ratio, higher: bool = False):
         """Extract fresh garment meshes into buffers trimmed to the next
         power of two above 1.15x the live count (at least 2048 and the
-        capacity floor); padding vertices are zeros and padding faces
-        (0, 0, 0), which the rasterizer skips as degenerate. The vertex SGD
-        and, where curves exist, the curve AdamW start afresh."""
-        fresh_body = self.mesh is None
-        meshes = self.discretize_sdf(ratio, -self.sdf_shrink, include_body=fresh_body)
+        capacity floor, at most the marching cubes' buffers); padding
+        vertices are zeros and padding faces (0, 0, 0), which the
+        rasterizer skips as degenerate. The body is extracted on the first
+        call. ``higher`` is inference's ``--quality higher`` (the JAX
+        ``marching_cube_update_host``): the body again too, and the
+        marching cubes' buffers at 2^22 vertices and 2^23 faces in place
+        of ``mc_capacity_v``/``_f``. The vertex SGD and, where curves
+        exist, the curve AdamW start afresh."""
+        max_verts, max_faces = ((1 << 22, 1 << 23) if higher else
+                                (self.cfg.mc_capacity_v, self.cfg.mc_capacity_f))
+        fresh_body = higher or self.mesh is None
+        meshes = self.discretize_sdf(ratio, -self.sdf_shrink, include_body=fresh_body,
+                                     max_verts=max_verts, max_faces=max_faces)
         if fresh_body:
             body, garments = meshes[0], meshes[1:]
             assert len(body[0]) > 0, "tmp sdf vanished"
@@ -304,8 +317,8 @@ class GarmentOptimNetwork:
             return max(c, 2048, floor)
 
         def pad(v, f):
-            cv = min(cap_of(len(v), floor_v), self.cfg.mc_capacity_v)
-            cf = min(cap_of(len(f), 2 * floor_v), self.cfg.mc_capacity_f)
+            cv = min(cap_of(len(v), floor_v), max_verts)
+            cf = min(cap_of(len(f), 2 * floor_v), max_faces)
             vp = torch.zeros(cv, 3, dtype=torch.float32, device=self.device)
             vp[:len(v)] = torch.as_tensor(v, device=self.device)
             fp = torch.zeros(cf, 3, dtype=torch.int64, device=self.device)
@@ -334,6 +347,23 @@ class GarmentOptimNetwork:
 
     def _camera(self):
         return scene_camera(self.scene, self.statics.image_size)
+
+    def sync_scene_to_dataset(self):
+        """Copy the scene leaves (``self.scene``, which the optimizer
+        updates) into ``dataset.params`` as numpy, for host consumers such
+        as the pose smoothing."""
+        sp = self.dataset.params
+        sc = bridge._map(self.scene, lambda t: t.detach().cpu().numpy().copy())
+        sp.poses, sp.trans, sp.shape = sc["poses"], sc["trans"], sc["shape"]
+        sp.conds, sp.camera = dict(sc["conds"]), dict(sc["camera"])
+
+    def invalidate_scene(self):
+        """After host code changed ``dataset.params``: copy it into the
+        scene leaves in place (the JAX package drops its device copy
+        here; the port's leaves are the tensors themselves)."""
+        sp = self.dataset.params
+        bridge.load_scene(self.scene, {"poses": sp.poses, "trans": sp.trans, "shape": sp.shape,
+                                       "conds": sp.conds, "camera": sp.camera})
 
     def _deform_garment_verts(self, garment_vs_list, frame_ids, ratio,
                               with_lbs_only: bool = False):

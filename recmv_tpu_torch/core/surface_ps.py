@@ -25,7 +25,8 @@ W1, W2 = 3.05, 1.0   # loss weights of |sdf| and sin∠
 
 
 def optimize_surface_points(sdf_fn, deform_fn, cam_origin, rays, init_pts, valid,
-                            athreshold_deg: float = 0.02, times: int = 20):
+                            athreshold_deg: float = 0.02, times: int = 20,
+                            dthreshold: float = DTHRESHOLD):
     """Refine canonical surface points along fixed rays.
 
     sdf_fn (M, 3) → (M,); deform_fn (M, 3) → (M, 3), both closed over
@@ -33,7 +34,7 @@ def optimize_surface_points(sdf_fn, deform_fn, cam_origin, rays, init_pts, valid
     unit rays, init_pts (M, 3) seeds, valid (M,) live rays.
     Returns (pts, converged ⊆ valid); pts carry no graph.
 
-    A point converges when |sdf| < DTHRESHOLD and its angle to the ray is
+    A point converges when |sdf| < dthreshold and its angle to the ray is
     below athreshold_deg, checked before each step; at most times + 1
     evaluations run, stopping early once no point is left unfinished."""
 
@@ -48,7 +49,7 @@ def optimize_surface_points(sdf_fn, deform_fn, cam_origin, rays, init_pts, valid
             losses = W1 * l1 + W2 * torch.abs(s)
             (grads,) = torch.autograd.grad(losses.sum(), p)
         ang = torch.arcsin(torch.clamp(s.detach(), 0.0, 1.0)) * 180.0 / math.pi
-        conv = (l1.detach() < DTHRESHOLD) & (ang < athreshold_deg)
+        conv = (l1.detach() < dthreshold) & (ang < athreshold_deg)
         return losses.detach(), grads, conv
 
     pts = init_pts.detach()

@@ -154,3 +154,31 @@ def laplacian_deform(verts, faces, constraint_ids, constraint_targets,
     if smooth:
         sol = Ls @ sol
     return verts + sol if displacement else sol
+
+
+def sew_upper_bottom(upper_verts, upper_waist_ids, bottom_verts, bottom_faces,
+                     bottom_waist_ids, static_ids=None, constrain_weight: float = 1.0,
+                     smooth: bool = True, device=None) -> np.ndarray:
+    """Sew a bottom garment's waist loop onto the upper garment's waist
+    loop by Laplacian editing of the bottom mesh
+    (``Laplacian_Deform_upper_and_domn_Optimzier``, reference
+    ``engineer/optimizer/lap_deform_optimizer.py:192-300``): the bottom's
+    'upper_bottom' loop is best-matched (optimal assignment) to the
+    upper's waist loop and pulled there; the bottom's other boundary loops
+    (``static_ids``: hemline, cuffs) stay put. The solve runs on
+    ``device`` (the CUDA card when none is given) → the deformed bottom
+    vertices (N, 3) numpy float32."""
+    from .matching import boundary_curve_best_match
+
+    bv = np.asarray(bottom_verts, np.float32)
+    waist = np.asarray(bottom_waist_ids, np.int64)
+    tgt_loop = np.asarray(upper_verts, np.float32)[np.asarray(upper_waist_ids)]
+    sel, matched = boundary_curve_best_match(bv[waist], tgt_loop)
+    cids, targets = [waist[sel]], [matched]
+    if static_ids is not None and len(static_ids):
+        sid = np.asarray(static_ids, np.int64)
+        cids.append(sid)
+        targets.append(bv[sid])
+    out = laplacian_deform(bv, bottom_faces, np.concatenate(cids), np.concatenate(targets),
+                           constrain_weight=constrain_weight, smooth=smooth, device=device)
+    return out.cpu().numpy()

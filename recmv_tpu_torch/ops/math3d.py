@@ -1,7 +1,7 @@
 """Batched small-matrix and rotation math (counterpart of
 ``recmv_tpu/ops/math3d.py``): ``fast_3x3_inv`` with its singularity mask
-and analytic backward, quaternion and axis-angle rotations, face normals,
-the Geman-McClure robustifier and the DCT basis."""
+and analytic backward, quaternion and axis-angle rotations, face and
+vertex normals, the Geman-McClure robustifier and the DCT basis."""
 
 from __future__ import annotations
 
@@ -93,6 +93,18 @@ def compute_fnorms(verts: torch.Tensor, faces: torch.Tensor, eps: float = 1e-6) 
     v2 = verts[..., faces[:, 2], :]
     n = torch.cross(v1 - v0, v2 - v0, dim=-1)
     return n / torch.clamp(torch.linalg.norm(n, dim=-1, keepdim=True), min=eps)
+
+
+def compute_vnorms(verts: torch.Tensor, faces: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    """Vertex normals as the normalized sum of the unit normals of the
+    faces around each vertex: verts (..., V, 3), faces (F, 3) → (..., V, 3),
+    one ``index_add_`` over the flattened (face, corner) indices (the JAX
+    ``segment_sum``)."""
+    fn = compute_fnorms(verts, faces.to(torch.int64), eps)              # (..., F, 3)
+    fn3 = torch.repeat_interleave(fn, 3, dim=-2)                      # (..., 3F, 3)
+    out = torch.zeros(verts.shape, dtype=fn.dtype, device=verts.device)
+    out.index_add_(verts.dim() - 2, faces.reshape(-1).to(torch.int64), fn3)
+    return out / torch.clamp(torch.linalg.norm(out, dim=-1, keepdim=True), min=eps)
 
 
 def dct_basis(k: int, n: int) -> np.ndarray:

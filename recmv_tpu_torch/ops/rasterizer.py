@@ -5,6 +5,10 @@ into per-tile candidate lists of at most ``cap`` entries (the nearest
 kept), then the per-tile kernels K1 (``mesh_raster.py``) and K2
 (``composite.py``) sweep those lists front to back.
 
+``phong_render`` (with ``mesh_vertex_normals``) is the inference
+exports' shader over ``rasterize_mesh``; ``silhouette_from_fragments``
+the hard silhouette.
+
 Inputs are screen-space (x_pix, y_pix, z_cam) as ``screen_with_cam_z``
 makes them; pixel centres sit at integer coordinates; point radii are in
 pytorch3d NDC units (2/min(H, W) per pixel). Every function takes a
@@ -19,7 +23,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from ..models.camera import transform_points_screen, world_to_cam
+from ..models.camera import Camera, transform_points_screen, world_to_cam
 from .composite import composite_tiles
 from .mesh_raster import mesh_tiles
 
@@ -223,3 +227,62 @@ def find_surface_points(frag: MeshFragments, verts_canonical: torch.Tensor,
     pts = torch.einsum("bhwk,bhwkc->bhwc", w, tri)
     return hit, pts, torch.where(hit, frag.pix_to_face[..., 0], -1)
 
+
+
+def mesh_vertex_normals(verts: torch.Tensor, faces: torch.Tensor) -> torch.Tensor:
+    """Area-weighted vertex normals: the unnormalized face normals
+    scatter-added (``index_add_``) onto their corners, then normalized."""
+    f = faces.to(torch.int64)
+    v0, v1, v2 = verts[f[:, 0]], verts[f[:, 1]], verts[f[:, 2]]
+    fn = torch.cross(v1 - v0, v2 - v0, dim=-1)
+    vn = torch.zeros_like(verts)
+    for k in range(3):
+        vn.index_add_(0, f[:, k], fn)
+    return vn / torch.clamp(torch.linalg.norm(vn, dim=-1, keepdim=True), min=1e-12)
+
+
+def phong_render(cam: Camera, world_verts: torch.Tensor, faces: torch.Tensor,
+                 vert_colors: torch.Tensor, image_size, light_loc, cam_pos,
+                 tile: int = 32, cap: int = 512, background: float = 1.0):
+    """Hard-Phong render of one mesh → ((H, W, 3) rgb in [0, 1], hit (H, W)).
+
+    The inference exports' shader (reference ``maskRender`` = pytorch3d
+    MeshRenderer + HardPhongShader, infer_garment,
+    OptimGarmentNetwork.py:3084-3213): K = 1 rasterization through
+    ``rasterize_mesh`` (kernel K1), barycentric position, normal and colour
+    interpolation, a point light with pytorch3d's default ambient, diffuse
+    and specular weights (0.5/0.3/0.2, shininess 64), a white background.
+    Normals are flipped toward the viewer, so the inside of an open
+    garment is not black."""
+    H, W = image_size
+    faces = faces.to(torch.int64)
+    scr = screen_with_cam_z(cam, world_verts)[None]
+    frag = rasterize_mesh(scr, faces, (H, W), tile=tile, cap=cap)
+    p2f = frag.pix_to_face[0, ..., 0]
+    hit = p2f >= 0
+    w = torch.where(hit[..., None], frag.bary_coords[0, ..., 0, :], 0.0)
+    tri = faces[torch.clamp(p2f, min=0).to(torch.int64)]         # (H, W, 3)
+
+    def interp(a):
+        return torch.einsum("hwk,hwkc->hwc", w, a[tri])
+
+    pos = interp(world_verts)
+    nrm = interp(mesh_vertex_normals(world_verts, faces))
+    nrm = nrm / torch.clamp(torch.linalg.norm(nrm, dim=-1, keepdim=True), min=1e-12)
+    col = interp(vert_colors)
+    v = cam_pos - pos
+    v = v / torch.clamp(torch.linalg.norm(v, dim=-1, keepdim=True), min=1e-12)
+    nrm = nrm * torch.sign(torch.sum(nrm * v, -1, keepdim=True) + 1e-12)
+    lv = light_loc - pos
+    lv = lv / torch.clamp(torch.linalg.norm(lv, dim=-1, keepdim=True), min=1e-12)
+    ndl = torch.clamp(torch.sum(nrm * lv, -1, keepdim=True), min=0.0)
+    refl = 2.0 * torch.sum(nrm * lv, -1, keepdim=True) * nrm - lv
+    spec = torch.clamp(torch.sum(refl * v, -1, keepdim=True), min=0.0) ** 64
+    rgb = torch.clamp(col * (0.5 + 0.3 * ndl) + 0.2 * spec, 0.0, 1.0)
+    return torch.where(hit[..., None], rgb, background), hit
+
+
+def silhouette_from_fragments(frag: MeshFragments) -> torch.Tensor:
+    """Hard silhouette (B, H, W): pytorch3d's SoftSilhouetteShader with
+    blur_radius 0 and one face per pixel is the coverage."""
+    return (frag.pix_to_face[..., 0] >= 0).to(torch.float32)

@@ -11,8 +11,8 @@ It runs on the CUDA card (``--device cuda``, the default) and raises
 without one; ``--device cpu`` runs it on the CPU. The JAX-only options
 (``--platform``, ``--cache-dir``, ``--exec-cache``) and the compile
 warm-up have no counterpart. ``--save-debug`` and ``--wandb`` are refused:
-the debug overlays need the inference renders, which are not ported yet
-(ROADMAP.md queue 1, item 5).
+the debug overlays need ``utils/debug_vis.py``, which is not ported yet
+(ROADMAP.md queue 1, item 3).
 """
 
 from __future__ import annotations
@@ -25,8 +25,7 @@ import time
 import numpy as np
 import torch
 
-_NOT_PORTED = ("{flag} needs utils/debug_vis.py and the inference renders, which the port "
-               "lacks (ROADMAP.md queue 1, item 5)")
+_NOT_PORTED = "{flag} needs utils/debug_vis.py, which the port lacks (ROADMAP.md queue 1, item 3)"
 
 
 def parse_args(argv=None):

@@ -348,7 +348,7 @@ def test_cli_initializes_trains_and_resumes(capsys, tmp_path):
 def test_cli_refuses_unported_options(scene, flag):
     with pytest.raises(SystemExit) as e:
         _cli(scene, "--device", "cpu", flag)
-    assert "ROADMAP.md queue 1, item 5" in str(e.value.code) and flag in str(e.value.code)
+    assert "ROADMAP.md queue 1, item 3" in str(e.value.code) and flag in str(e.value.code)
 
 
 def test_cli_needs_the_card_unless_told(scene):

@@ -153,6 +153,48 @@ def test_mesh_tiles_kernel_on_body_zbuffer(cuda, monkeypatch):
 
 
 @pytest.mark.gpu
+def test_mesh_tiles_kernel_on_visibility_scan(cuda, monkeypatch):
+    """The registration's visibility scan: a seeded closed mesh (an MC
+    sphere with noise, ~100k faces, so tiles exceed the cap) seen from the
+    12 turntable cameras of ``visible_vertex_mask`` at 512², tile 32, cap
+    512: the kernel gives the plain version's bits, the scan is one
+    launch, and both give the same visible vertices."""
+    from recmv_tpu_torch.core import inference
+    from recmv_tpu_torch.native import marching_cubes_host
+    from recmv_tpu_torch.ops import rasterizer
+    from recmv_tpu_torch.ops.mesh_raster import _mesh_tiles_torch, mesh_tiles
+
+    lin = np.linspace(-0.6, 0.6, 129, dtype=np.float32)
+    z, y, x = np.meshgrid(lin, lin, lin, indexing="ij")
+    v, f = marching_cubes_host(np.sqrt(x * x + y * y + z * z) - 0.5, 0.0, (-0.6,) * 3,
+                               (lin[1] - lin[0],) * 3)
+    v = v + 0.002 * np.random.RandomState(9).randn(*v.shape).astype(np.float32)
+    calls = []
+
+    def record(*args):
+        calls.append(args)
+        return mesh_tiles(*args)
+
+    monkeypatch.setattr(rasterizer, "mesh_tiles", record)
+    mesh_tiles.launches = 0
+    got = inference.visible_vertex_mask(v, f, device=cuda)
+    assert mesh_tiles.launches == 1 and len(calls) == 1
+    prm, fid, cnt, Wt, tile = calls[0]
+    assert prm.shape[:2] == (12, 256) and prm.shape[3] == 512 and Wt == 16 and tile == 32
+    assert int((cnt == 512).sum()) > 0                    # tiles over the cap
+    with torch.no_grad():
+        k = mesh_tiles(*calls[0])
+        p = _mesh_tiles_torch(*calls[0])
+    torch.cuda.synchronize()
+    for a, b in zip(k, p):
+        assert torch.equal(a, b)
+    monkeypatch.setattr(rasterizer, "mesh_tiles", _mesh_tiles_torch)
+    want = inference.visible_vertex_mask(v, f, device=cuda)
+    np.testing.assert_array_equal(got, want)
+    assert 0.3 < got.mean() < 1.0
+
+
+@pytest.mark.gpu
 def test_composite_kernel_matches_plain(cuda):
     from recmv_tpu_torch.ops.composite import _composite_tiles_torch, composite_tiles
 
@@ -721,7 +763,7 @@ def test_port_imports_no_jax():
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
                          text=True, timeout=300)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.split()[-1]) >= 30
+    assert int(out.stdout.split()[-1]) >= 53
 
 
 def test_build_compiles_only_the_ports_sources(monkeypatch):
@@ -747,7 +789,8 @@ def test_build_compiles_only_the_ports_sources(monkeypatch):
 
 
 @pytest.mark.parametrize("entry", ["generate_scene", "build_opt_net", "GarmentOptimNetwork",
-                                   "skinner_from_jax", "scene_from_jax", "laplacian_deform"])
+                                   "skinner_from_jax", "scene_from_jax", "laplacian_deform",
+                                   "nricp_fit", "visible_vertex_mask"])
 def test_entry_points_need_a_card_or_a_device(monkeypatch, tmp_path, entry):
     """The port's entry points run on the card when no device is given,
     and raise (never fall back to the CPU) when there is no card. The
@@ -756,7 +799,9 @@ def test_entry_points_need_a_card_or_a_device(monkeypatch, tmp_path, entry):
     from recmv_tpu_torch.core.builder import build_opt_net
     from recmv_tpu_torch.core.network import GarmentOptimNetwork
     from recmv_tpu_torch.data.synthetic import generate_scene
+    from recmv_tpu_torch.core.inference import visible_vertex_mask
     from recmv_tpu_torch.geometry.laplacian import laplacian_deform
+    from recmv_tpu_torch.geometry.nricp import nricp_fit
 
     call = {"generate_scene": lambda: generate_scene(str(tmp_path / "scene")),
             "build_opt_net": lambda: build_opt_net(None, None, str(tmp_path)),
@@ -764,7 +809,10 @@ def test_entry_points_need_a_card_or_a_device(monkeypatch, tmp_path, entry):
             "skinner_from_jax": lambda: bridge.skinner_from_jax({}),
             "scene_from_jax": lambda: bridge.scene_from_jax({}),
             "laplacian_deform": lambda: laplacian_deform(np.zeros((3, 3)), [[0, 1, 2]], [0],
-                                                         np.zeros((1, 3)))}[entry]
+                                                         np.zeros((1, 3))),
+            "nricp_fit": lambda: nricp_fit(np.zeros((3, 3)), [[0, 1, 2]], np.zeros((3, 3))),
+            "visible_vertex_mask": lambda: visible_vertex_mask(np.zeros((3, 3)),
+                                                               [[0, 1, 2]])}[entry]
     if not torch.cuda.is_available():          # no card here: the default must raise
         with pytest.raises(RuntimeError, match="no CUDA device"):
             call()
