@@ -113,15 +113,37 @@ Phases, one printed line each (or more):
     buffers, with its counts and seconds. It raises on a missing export,
     a non-finite or empty result, a registration farther than 0.05 from
     the MC surface on average, a ``higher`` garment with no more vertices
-    than the coarse one, or a kernel of the path that never launched.
+    than the coarse one, or a kernel of the path that never launched;
+17. the body priors, the debug renders and the large-pose stage, with
+    the kernels' launch counts set to 0 before and read after: a
+    synthetic-tube scene of 16 frames at 1080² made a large-pose scene
+    (feature lines on frames 0-7 only, a depth drift after them, a TCMR
+    pickle written without joblib with the synthetic body's 2D joints at
+    betas (1.0, −0.5)); stage 1, ``train.main`` in process with
+    ``smoke.conf`` less its caps and ``data_type = large_pose`` and
+    ``--save-debug``: the beta pre-fit on the cold skinner cache (its
+    seconds, betas and mean reprojection error before and after), the
+    60-epoch initialization, 4 steps and the debug renders after the
+    first step's remesh (``save_debug``'s overlays and silhouettes, one
+    K1 launch for the batch's frames; the 8-view 256² turntable, one K1
+    launch at cap 256), with their seconds; stage 2,
+    ``train_large_pose.main --start-epoch 0 --max-steps 4`` on frames
+    8-15: each step's time by phase, converged rays and launches. Then
+    K1 against its plain version on the turntable's arguments and on the
+    silhouette's, K2 and K3 on the last large-pose step's mask composite,
+    as in phases 8 and 12. It raises unless the pre-fit lowers the error,
+    the debug PNGs and turntable exist, each large-pose step runs no ①
+    and launches K1 (ray seeding), K2 and K3 once each, and
+    ``large_pose.ckpt`` holds ``latest.ckpt``'s SDF leaves bit for bit
+    with a moved translator.
 
 A kernel's bound is the larger of the bytes it must move (each input
 read once: the listed candidates, the counts, the upstream gradient;
 each output written once) over 3.35 TB/s and the operations the live
 pairs need over 67 TFLOP/s (H100 SXM float32, published peaks). Then a
 JSON line with each kernel's record (launches from the training run of
-phase 10, K1's with phase 16's added; error, times and bound from phases
-8 and 12; no PyTorch call
+phase 10, K1's with phase 16's added, all three with phase 17's added;
+error, times and bound from phases 8 and 12; no PyTorch call
 computes these functions, so ``library_ms`` is null), the card's name and
 power limit, and last ``{"ok": true, "device": {...}}``. Any failure
 raises and the exit code is not 0. Without CUDA it exits with 2 before
@@ -152,6 +174,8 @@ INFER_FRAMES = (0, 1)                  # the inference phase's exported frames
 ANIM_POSES = 8                         # the animation's motion
 REG_DIST_BOUND = 0.05                  # mean registered -> MC distance the phase accepts
 CAP_PROBE = 4096                       # the larger mesh cap phase 16 compares with
+LP_ANNOTATED, LP_STEPS = 8, 4          # phase 17: the A-pose range, large-pose steps
+LP_TARGET_BETAS = (1.0, -0.5)          # the betas of the scene's TCMR joints
 SKINNER_RES = (129, 225, 65)
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory, published peak
 FP32_FLOP_PER_S = 67e12        # H100 SXM float32 outside the tensor cores, published peak
@@ -820,13 +844,16 @@ def two_garment_run(dev, work: str) -> None:
                                        fwd[3].requires_grad))
 
 
-def smoke_conf_without_caps(path: str) -> str:
+def smoke_conf_without_caps(path: str, data_type: str | None = None) -> str:
     """``configs/synthetic/smoke.conf`` without its ``train.caps`` block,
+    and with ``train.data_type`` set to ``data_type`` when one is given,
     written to ``path``: the scene-derived production caps apply."""
     from recmv_tpu_torch.config import ConfigFactory, dump_config
 
     conf = ConfigFactory.parse_file(osp.join(ROOT, "configs", "synthetic", "smoke.conf"))
     del conf["train"]["caps"]
+    if data_type:
+        conf["train"]["data_type"] = data_type
     with open(path, "w") as f:
         f.write(dump_config(conf))
     return path
@@ -1259,6 +1286,238 @@ def infer_run(dev, scene: str) -> int:
     return launches["mesh_tiles"]
 
 
+def large_pose_run(dev, work: str) -> tuple:
+    """Phase 17: the body priors, the debug renders and the large-pose
+    stage. A synthetic-tube scene of ``CLI_FRAMES`` frames at ``IMAGE``²
+    made a large-pose scene (``make_large_pose_scene``: feature lines on
+    frames < ``LP_ANNOTATED`` only, a depth drift after them, a TCMR
+    pickle written without joblib with 2D joints of the synthetic body at
+    ``LP_TARGET_BETAS``). Stage 1: ``train.main`` with ``smoke.conf`` less
+    its caps and ``data_type = large_pose``, and ``--save-debug`` (the
+    A-pose range; the beta pre-fit on the cold skinner cache, the
+    initialization, ``CLI_STEPS`` steps, the debug renders after the
+    first step's remesh). Stage 2:
+    ``train_large_pose.main --start-epoch 0 --max-steps LP_STEPS`` (the
+    large-motion range, SDFs frozen, ① off). The kernels' launch counts
+    are set to 0 before stage 1 and read after stage 2. Prints the
+    pre-fit's seconds, betas and mean reprojection error before and
+    after, the debug files and the seconds of each render, each stage-2
+    step's time by phase, converged rays and launches; then K1 against
+    its plain version on the turntable's arguments (8 views at 256², cap
+    256) and on a ``save_debug`` silhouette (the batch's frames at
+    1080²), K2 and K3 on the last large-pose step's mask composite.
+    Raises unless the error falls, the debug PNGs and turntable exist,
+    every stage-2 step launches K1 once (ray seeding) and K2 and K3 once
+    each, every SDF leaf of ``large_pose.ckpt`` equals ``latest.ckpt``'s
+    to the bit and the translator moved. Returns (the launch counts, K1's
+    records on the turntable and the silhouette)."""
+    import numpy as np
+    import torch
+
+    from recmv_tpu_torch import train as cli
+    from recmv_tpu_torch import train_large_pose
+    from recmv_tpu_torch.core import beta_optimizer, builder
+    from recmv_tpu_torch.core.network import GarmentOptimNetwork
+    from recmv_tpu_torch.data.synthetic import generate_scene, make_large_pose_scene
+    from recmv_tpu_torch.ops import rasterizer
+    from recmv_tpu_torch.ops.composite import composite_tiles, composite_tiles_bwd
+    from recmv_tpu_torch.ops.mesh_raster import mesh_tiles
+    from recmv_tpu_torch.utils import debug_vis
+    from recmv_tpu_torch.utils.checkpoint import read_checkpoint
+
+    card = card_line()
+    scene = osp.join(work, "scene")
+    t0 = time.time()
+    generate_scene(scene, n_frames=CLI_FRAMES, image_size=IMAGE, skinner_res=SKINNER_RES,
+                   device=dev)
+    target = np.zeros(10, np.float32)
+    target[:2] = LP_TARGET_BETAS
+    make_large_pose_scene(scene, LP_ANNOTATED, target, device=dev)
+    log(f"[17] generated the large-pose tube: {CLI_FRAMES} frames at {IMAGE}², feature lines "
+        f"on frames 0-{LP_ANNOTATED - 1}, TCMR joints at betas {target[:2].tolist()}, in "
+        f"{time.time() - t0:.1f} s")
+    conf = smoke_conf_without_caps(osp.join(work, "large_pose.conf"), "large_pose")
+    save = osp.join(scene, "result")
+    fits, renders, k1_calls, steps, store = [], [], [], [], {}
+    fit = builder.smpl_beta_optimizer
+    save_debug, turntable = debug_vis.save_debug, debug_vis.turntable_curve_mesh
+    train_step = GarmentOptimNetwork.train_step
+
+    def timed_fit(model, init_pose, dataset, **kw):
+        frames = beta_optimizer.fit_frames(dataset, device=kw.get("device"))
+        b0 = torch.as_tensor(np.asarray(dataset.params.shape, np.float32), device=dev)
+        e0 = float(beta_optimizer.reprojection_loss(model, b0, torch.zeros(1, 3, device=dev),
+                                                    frames))
+        torch.cuda.synchronize()
+        t = time.time()
+        betas, extra = fit(model, init_pose, dataset, **kw)
+        torch.cuda.synchronize()
+        sec = time.time() - t
+        e1 = float(beta_optimizer.reprojection_loss(model, torch.as_tensor(betas, device=dev),
+                                                    torch.as_tensor(extra, device=dev), frames))
+        fits.append(dict(seconds=sec, betas=betas, extra=extra, before=e0, after=e1,
+                         frames=int(frames[0].shape[0])))
+        return betas, extra
+
+    def timed(fn, name):
+        def call(*args, **kwargs):
+            torch.cuda.synchronize()
+            n0, t = len(k1_calls), time.time()
+            out = fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            renders.append(dict(name=name, seconds=time.time() - t, k1=k1_calls[n0:]))
+            return out
+        return call
+
+    def step(self, *args, **kwargs):
+        """``train_step`` with a CUDA event after each phase, its K1 calls
+        and the launches of K2 and K3."""
+        k1_0, c0, b0 = len(k1_calls), composite_tiles.launches, composite_tiles_bwd.launches
+        events = [("start", torch.cuda.Event(enable_timing=True))]
+        events[0][1].record()
+
+        def mark(name):
+            e = torch.cuda.Event(enable_timing=True)
+            e.record()
+            events.append((name, e))
+
+        torch.cuda.synchronize()
+        t = time.time()
+        loss, info = train_step(self, *args, timer=mark, **kwargs)
+        torch.cuda.synchronize()
+        steps.append(dict(stage=2 if self.large_pose else 1, wall=time.time() - t, info=info,
+                          k1=len(k1_calls) - k1_0, k2=composite_tiles.launches - c0,
+                          k3=composite_tiles_bwd.launches - b0,
+                          phases={n: events[i][1].elapsed_time(e)
+                                  for i, (n, e) in enumerate(events[1:])}))
+        return loss, info
+
+    common = ["--conf", conf, "--data-root", scene, "--device", str(dev), "--quality",
+              CLI_QUALITY]
+    mesh_tiles.launches = composite_tiles.launches = composite_tiles_bwd.launches = 0
+    with rasterizer_kernels(recording(composite_tiles, store, "composite_tiles"),
+                            recording_calls(rasterizer.mesh_tiles, k1_calls)):
+        builder.smpl_beta_optimizer = timed_fit
+        debug_vis.save_debug = timed(save_debug, "save_debug")
+        debug_vis.turntable_curve_mesh = timed(turntable, "turntable")
+        GarmentOptimNetwork.train_step = step
+        try:
+            t0 = time.time()
+            net1 = cli.main(common + ["--init-epochs", str(CLI_INIT_EPOCHS), "--max-steps",
+                                      str(CLI_STEPS), "--seed", "0", "--save-debug"])
+            wall1 = time.time() - t0
+            launches1 = {"mesh_tiles": mesh_tiles.launches,
+                         "composite_tiles": composite_tiles.launches,
+                         "composite_tiles_bwd": composite_tiles_bwd.launches}
+            t0 = time.time()
+            net2 = train_large_pose.main(common + ["--start-epoch", "0", "--max-steps",
+                                                   str(LP_STEPS)])
+            wall2 = time.time() - t0
+        finally:
+            builder.smpl_beta_optimizer = fit
+            debug_vis.save_debug, debug_vis.turntable_curve_mesh = save_debug, turntable
+            GarmentOptimNetwork.train_step = train_step
+    torch.cuda.synchronize()
+    launches = {"mesh_tiles": mesh_tiles.launches, "composite_tiles": composite_tiles.launches,
+                "composite_tiles_bwd": composite_tiles_bwd.launches}
+
+    if len(fits) != 1:
+        raise AssertionError(f"the beta pre-fit ran {len(fits)} times, not once")
+    f = fits[0]
+    log(f"[17] beta pre-fit ({card}): {f['seconds']:.3f} s, 150 Adam steps on {f['frames']} "
+        f"frames; betas {np.round(f['betas'][:2], 5).tolist()} (target "
+        f"{target[:2].tolist()}), extra translation {np.round(f['extra'][0], 5).tolist()}; "
+        f"mean reprojection error (confidence-weighted L1 per coordinate, px) "
+        f"{f['before']:.4f} -> {f['after']:.4f}")
+    if not f["after"] < f["before"] or not np.isfinite(f["betas"]).all():
+        raise AssertionError("the beta pre-fit did not lower the reprojection error")
+    cached = np.load(osp.join(save, "initial_skinner_0.npz"))
+    if not np.array_equal(cached["extra_trans"].reshape(1, 3), f["extra"].reshape(1, 3)):
+        raise AssertionError("the skinner cache does not hold the pre-fit's translation")
+
+    files = sorted(os.listdir(osp.join(save, "debug")))
+    pngs = [n for n in files if n.endswith(".png")]
+    tables = [n for n in pngs if n.endswith("_turntable.png")]
+    for r in renders:
+        log(f"[17] {r['name']} ({card}): {r['seconds']:.3f} s, K1 launches {len(r['k1'])} "
+            f"({', '.join(f'{c[0].shape[0]} frames, {c[3]} tiles wide, cap {c[0].shape[3]}' for c in r['k1'])})")
+    log(f"[17] stage 1 (train.main --save-debug): {wall1:.1f} s; debug files {len(files)}: "
+        f"{len(pngs)} PNGs, {len(tables)} turntables; launches {json.dumps(launches1)}")
+    by_name = {r["name"]: r for r in renders}
+    if (len(tables) < 1 or len(pngs) <= len(tables) or set(by_name) != {"save_debug", "turntable"}
+            or len(by_name["turntable"]["k1"]) != 1 or len(by_name["save_debug"]["k1"]) != 1):
+        raise AssertionError(f"stage 1 wrote no debug renders, or not through one K1 launch "
+                             f"each: {files} {[(r['name'], len(r['k1'])) for r in renders]}")
+
+    stage2 = [s for s in steps if s["stage"] == 2]
+    for i, s in enumerate(steps):
+        info = s["info"]
+        conv = int(sum(info[f"{g}_rayConv"] for g in net2.statics.garment_names))
+        log(f"[17] stage {s['stage']} step {i} wall {s['wall']:.3f} s"
+            f"{' (remesh)' if info['remeshed'] else ''} phases_ms "
+            f"{json.dumps({k: round(v, 3) for k, v in s['phases'].items()})} rays converged "
+            f"{conv} of {int(info['tube_rayBudget'])} launches K1 {s['k1']} K2 {s['k2']} K3 "
+            f"{s['k3']} loss {info['m_loss_total']:.6f}")
+        bad = {k: v for k, v in info.items() if not math.isfinite(v)}
+        if bad:
+            raise AssertionError(f"a step had non-finite outputs {bad}")
+    if (len(stage2) != LP_STEPS or any((s["k1"], s["k2"], s["k3"]) != (1, 1, 1) for s in stage2)
+            or any(k.startswith("fl_") for s in stage2 for k in s["info"])):
+        raise AssertionError("a large-pose step ran ① or launched K1, K2 or K3 other than once")
+    steady = stage2[1:]
+    mean = {k: float(np.mean([s["phases"][k] for s in steady])) for k in steady[0]["phases"]}
+    log(f"[17] stage 2 (train_large_pose.main, {net2.dataset.frame_num} frames from "
+        f"{net2.dataset.start_idx}): {wall2:.1f} s; steps 1-{len(steady)} ({card}) wall mean "
+        f"{np.mean([s['wall'] for s in steady]):.4f} s phases_ms mean "
+        f"{json.dumps({k: round(v, 3) for k, v in mean.items()})}")
+
+    a, b = (read_checkpoint(osp.join(save, n)) for n in ("latest.ckpt", "large_pose.ckpt"))
+    same = all(np.array_equal(x, y) for k in ("sdf", "garment_sdfs")
+               for x, y in zip(_leaves(a["params"][k]), _leaves(b["params"][k])))
+    moved = max(float(np.abs(x - y).max()) for x, y in
+                zip(_leaves(a["params"]["translator"]), _leaves(b["params"]["translator"])))
+    log(f"[17] large_pose.ckpt: SDF leaves equal latest.ckpt's bit for bit {same}; translator "
+        f"moved by up to {moved:.3e}; launches over both stages {json.dumps(launches)}")
+    if not same or not moved > 0.0 or not net2.large_pose:
+        raise AssertionError("the large-pose stage moved an SDF leaf or left the translator")
+    if min(launches.values()) < 1:
+        raise AssertionError(f"a kernel of phase 17 never launched: {launches}")
+
+    kres = {"turntable": compare_mesh_tiles("17 turntable", by_name["turntable"]["k1"][0],
+                                            min_cover=0.001),
+            "save_debug": compare_mesh_tiles("17 save_debug silhouette",
+                                             by_name["save_debug"]["k1"][0], min_cover=0.005)}
+    fwd = store["composite_tiles"]
+    compare_composite_tiles("17", fwd)
+    compare_composite_bwd("17", fwd + (store["composite_tiles.grad"].contiguous(),
+                                       fwd[3].requires_grad))
+    turntable_cap_probe(net1)
+    del net1, net2
+    return launches, kres
+
+
+def turntable_cap_probe(net) -> None:
+    """The turntable's 8 views of the garment of ``net`` (its current MC
+    mesh) at the turntable's cap of 256 and at ``CAP_PROBE``: the share
+    of pixels each covers (the nearest 256 faces of a tile, by quantized
+    depth, can leave holes where a tile holds more front faces)."""
+    import torch
+
+    from recmv_tpu_torch.ops.rasterizer import rasterize_mesh, screen_with_cam_z
+    from recmv_tpu_torch.utils.debug_vis import turntable_cameras
+
+    n, nf = net.mesh.garment_n[0], net.mesh.garment_fn[0]
+    v = net.mesh.garment_vs[0][:n].detach()
+    f = net.mesh.garment_fs[0][:nf]
+    with torch.no_grad():
+        scr = torch.stack([screen_with_cam_z(c, v - v.mean(0))
+                           for c in turntable_cameras(8, 256, v.device)])
+        cover = {cap: (rasterize_mesh(scr, f, (256, 256), tile=32, cap=cap).pix_to_face >= 0
+                       ).float().mean().item() for cap in (256, CAP_PROBE)}
+    log(f"[17] turntable of the {n}-vertex, {nf}-face garment: pixels covered at cap 256 "
+        f"{cover[256]:.4f}, at cap {CAP_PROBE} {cover[CAP_PROBE]:.4f}")
+
+
 def _leaves(tree) -> list:
     """The numpy leaves of a nested dict/tuple tree, in key order."""
     if isinstance(tree, dict):
@@ -1423,6 +1682,13 @@ def main() -> int:
 
     # phase 16: inference on the fitted scene; K1's launches there count
     launches["mesh_tiles"] += infer_run(dev, scene)
+    torch.cuda.empty_cache()
+
+    # phase 17: the body priors, the debug renders and the large-pose
+    # stage; its launches count
+    lp_launches, _ = large_pose_run(dev, tempfile.mkdtemp(prefix="recmv_chip_smoke_lp_"))
+    for n, c in lp_launches.items():
+        launches[n] += c
 
     sources = {"mesh_tiles": ("recmv_tpu_torch/csrc/mesh_raster.cu",
                               "recmv_tpu/ops/pallas_raster.py:31"),

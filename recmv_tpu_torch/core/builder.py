@@ -2,10 +2,11 @@
 ``recmv_tpu/core/builder.py``): the skinner (cached per scene in the same
 ``initial_skinner_<type>.npz`` layout the JAX builder writes, with the
 canonical body mesh the ① body z-buffer poses), the SDF, deformer and
-render nets, the seg3d pyramid and the ``TrainConfig``.
-
-The beta pre-fit from 2D joints is not ported yet: the dataset raises for
-a scene that ships them (synthetic scenes do not).
+render nets, the seg3d pyramid and the ``TrainConfig``. On a cold skinner
+cache with TCMR 2D joints in the dataset, the beta pre-fit
+(``beta_optimizer.smpl_beta_optimizer``) refines ``dataset.params.shape``
+and gives the skinner its extra translation first, as
+``recmv_tpu/core/builder.py:92-101`` does; the cache records the result.
 """
 
 from __future__ import annotations
@@ -22,6 +23,7 @@ from ..models.garment_model import init_model
 from ..models.skinner import SkinnerParams, bbox_size, initial_lbs_skinner
 from ..models.smpl import get_smpl
 from ..ops.seg3d import Seg3dConfig
+from .beta_optimizer import smpl_beta_optimizer
 from .network import GarmentOptimNetwork, TrainConfig
 
 
@@ -86,9 +88,14 @@ def build_opt_net(conf, dataset, save_root: str, resolutions=None,
         body_vs, body_fs = data["tmpBodyVs"], data["tmpBodyFs"]
     else:
         model = get_smpl(dataset.gender, smpl_dir)
+        init_pose = apose_from_type(init_pose_type)
+        extra_trans = None
+        if dataset.gt_joints2d is not None:
+            betas, extra_trans = smpl_beta_optimizer(model, init_pose, dataset, device=device)
+            dataset.params.shape = np.asarray(betas, np.float32).reshape(-1)
         sk, body_vs, body_fs = initial_lbs_skinner(
-            model, torch.as_tensor(dataset.params.shape, device=device),
-            apose_from_type(init_pose_type), skinner_res)
+            model, torch.as_tensor(dataset.params.shape, device=device), init_pose,
+            skinner_res, extra_trans=extra_trans)
         fite = osp.join(dataset.root, "diffused_skinning_weights.npy")
         if osp.isfile(fite):
             ws = np.load(fite)

@@ -106,9 +106,14 @@ class GarmentOptimNetwork:
 
     def __init__(self, conf, dataset, params: dict, statics: ModelStatics,
                  seg3d_cfg: Seg3dConfig, train_cfg: TrainConfig | None = None,
-                 sdf_shrink: float = 0.0, device=None, body_vs=None, body_fs=None):
+                 sdf_shrink: float = 0.0, device=None, body_vs=None, body_fs=None,
+                 large_pose: bool = False):
         """``body_vs`` (V, 3) / ``body_fs`` (F, 3): the canonical body mesh
-        that the ① body z-buffer poses (``build_opt_net``'s skinner mesh)."""
+        that the ① body z-buffer poses (``build_opt_net``'s skinner mesh).
+        ``large_pose``: the large-pose stage (OptimGarmentNetwork_LargePose,
+        OptimGarmentNetwork_Large_Pose.py:120-474): the SDFs are frozen and
+        ① is off, so only the deformer, render net and scene leaves train;
+        set the attribute and call ``_init_global_opt`` to switch stages."""
         self.conf = conf
         self.full_conf = conf
         self.dataset = dataset
@@ -149,7 +154,8 @@ class GarmentOptimNetwork:
             "camera": {k: t(v) for k, v in p.camera.items()},
         }
         self._lr = conf.get_float("train.learning_rate", 1e-4) if "train" in conf else 1e-4
-        self._init_global_opt(self._lr)
+        self.large_pose = bool(large_pose)
+        self._init_global_opt()
         self.vert_opt = None
         self._lr_scale = 1.0
 
@@ -173,23 +179,29 @@ class GarmentOptimNetwork:
                 out[f"scene.{k}"] = v
         return out
 
-    def _init_global_opt(self, lr: float):
-        """Adam(lr, betas (0.9, 0.999), eps 1e-8), which equals
-        ``optax.adam(lr)`` as long as every leaf gets a gradient tensor at
-        every step (zeros, never None): optax moves a zero-gradient leaf by
-        its momentum and counts one step for all leaves. The trainable
-        mask follows ``trainable_mask``: the network leaves all train, the
-        scene leaves as the ``train.opt_*`` config says."""
+    def _init_global_opt(self, lr: float | None = None):
+        """A fresh Adam(lr, betas (0.9, 0.999), eps 1e-8) (``lr`` defaults to
+        ``train.learning_rate``), which equals ``optax.adam(lr)`` as long as
+        every leaf gets a gradient tensor at every step (zeros, never
+        None): optax moves a zero-gradient leaf by its momentum and counts
+        one step for all leaves. The trainable mask follows
+        ``trainable_mask``: the network leaves all train, but for the
+        ``sdf`` and ``garment_sdfs`` leaves in the large-pose stage, the
+        scene leaves as the ``train.opt_*`` config says. A frozen leaf
+        gets zero gradients from a fresh optimizer, so its moments stay 0
+        and it comes out of every step bit-equal."""
         mask = trainable_mask(self.full_conf, self.dataset.frame_num)
         self._trainable = {}
         for name in self.global_leaves():
             parts = name.split(".")
             if parts[0] != "scene":
-                self._trainable[name] = True
+                self._trainable[name] = not (self.large_pose
+                                             and parts[0] in ("sdf", "garment_sdfs"))
                 continue
             m = mask[parts[1]]
             self._trainable[name] = bool(m[parts[2]] if isinstance(m, dict) else m)
-        self.global_opt = torch.optim.Adam(list(self.global_leaves().values()), lr=lr,
+        self.global_opt = torch.optim.Adam(list(self.global_leaves().values()),
+                                           lr=self._lr if lr is None else lr,
                                            betas=(0.9, 0.999), eps=1e-8)
 
     def curve_leaves(self) -> list:
@@ -982,26 +994,35 @@ class GarmentOptimNetwork:
         and curves; one Adam step on the sum of the ② and ③ global
         gradients after the trainable mask and the lr scale.
 
+        In the large-pose stage (``large_pose``) ① is skipped entirely, as
+        the JAX step does (``network.py:1503``, ``:1817``): no curve loss, no
+        curve step and no ``fl_*`` info; the curve-aware ③ term still follows
+        its weight.
+
         ``batch``: numpy dict from ``dataset.get_batch``; ``frame_ids``
         local indices. Random draws come from ``generator``; ``draws``
         ({"uniforms": per garment seeding uniforms, "main": ``main_draws``'
         list, "curve_aware": ``curve_aware_draws``' dict where the term
         fires}) replaces them. ``timer``, if given, is called with each
-        phase name after the phase. Returns (main loss, info)."""
+        phase name after the phase. Returns (main loss, info); ``info``'s
+        ``remeshed`` is 1.0 when the step ran ``marching_cube_update`` and
+        0.0 otherwise (the JAX step tells it by a wall time,
+        ``t_remesh > 0.5``)."""
         local = np.asarray(frame_ids)
         fids = torch.as_tensor(local + self.dataset.start_idx, device=self.device)
         mark = timer or (lambda name: None)
         r = _ratio_dict(ratio)
         N = len(local)
-        if self.mesh is None or (self.opt_times % self.cfg.remesh_intersect == 0
-                                 and self._remeshed_at != self.opt_times):
+        remeshed = self.mesh is None or (self.opt_times % self.cfg.remesh_intersect == 0
+                                         and self._remeshed_at != self.opt_times)
+        if remeshed:
             self.marching_cube_update(r)
         mark("remesh")
 
         dev = self.device_batch(batch)
         mark("upload")
         info_fl = {}
-        if self.params.get("curves"):
+        if not self.large_pose and self.params.get("curves"):
             curve_leaves = self.curve_leaves()
             fl_loss, info_fl = self.fl_branch_loss(
                 self.params["curves"], fids, dev["fl_pts"], dev["fl_masks"], r,
@@ -1075,7 +1096,7 @@ class GarmentOptimNetwork:
         mark("update")
 
         info = {**info_fl, **info_pc, "pc_loss_total": pc_loss, **info_m, "m_loss_total": m_loss,
-                "gnorm_pc": gnorm_pc, "gnorm_main": gnorm_main}
+                "gnorm_pc": gnorm_pc, "gnorm_main": gnorm_main, "remeshed": float(remeshed)}
         budget = max(self.cfg.sample_pix // self.statics.garment_size, 1) * N
         for gi, gname in enumerate(self.statics.garment_names):
             info[f"{gname}_rayConv"] = solved[gi]["conv"].sum()
@@ -1438,7 +1459,7 @@ class GarmentOptimNetwork:
             self.garment_extract_bboxes = list(state["garment_extract_bboxes"])
         elif self.garment_templates:
             self.garment_extract_bboxes = [_template_box(t.verts) for t in self.garment_templates]
-        self._init_global_opt(self._lr)
+        self._init_global_opt()
         if self.params.get("curves"):
             self.reset_curve_optimizer()
         return state["epoch"]

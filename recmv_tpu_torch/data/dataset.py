@@ -1,12 +1,9 @@
 """Copy of ``recmv_tpu/data/dataset.py``, kept as it is apart from this
-note, its imports and these cuts: the port runs where JAX is absent, and
-importing any ``recmv_tpu`` module imports JAX. Images are read with the
-package's own PNG reader (``data/png.py``) in place of OpenCV, which that
-machine lacks; ``LargePoseDataset`` (it needs ``core.inference``, not yet
-ported) is left out with its ``_adjust_sequences`` hook, and the factory
-raises for ``data_type="large_pose"``; the TCMR 2D joints are not loaded
-(they feed only the beta pre-fit, not yet ported), and a scene that ships
-them raises.
+note, its imports and two changes: the port runs where JAX, OpenCV and
+joblib are absent, and importing any ``recmv_tpu`` module imports JAX.
+Images are read with the package's own PNG reader (``data/png.py``), the
+TCMR output with ``utils/pickle_compat.load_joblib``; and unlike the JAX
+package, a TCMR file that cannot be read raises (``SceneDataset._load_tcmr``).
 
 Scene datasets — host-side data layer.
 
@@ -45,6 +42,7 @@ import numpy as np
 from ..config.constants import ATR_PARSING, FL_INFOS
 from ..geometry.polygons import uniform_sample
 from ..ops.math3d import dct_space
+from ..utils.pickle_compat import load_joblib
 
 from .png import imread
 
@@ -147,10 +145,8 @@ class SceneDataset:
         self.start_idx = 0
 
         self._read_data()
-        tcmr = osp.join(self.root, f"{self.garment_type}_tcmr_output.pkl")
-        if osp.exists(tcmr):
-            raise NotImplementedError(f"TCMR 2D joints ({tcmr}) feed the beta pre-fit, "
-                                      "which is not ported yet")
+        self._load_tcmr()
+        self._adjust_sequences()
         self.params = init_scene_params(
             self.poses, self.trans, self.shape, self.camera_params,
             self.conds_lens, self.frame_num,
@@ -203,6 +199,30 @@ class SceneDataset:
             fl_dir = osp.join(self.root, "mask2fl")
         assert osp.isdir(fl_dir), f"no featurelines/ or mask2fl/ under {self.root}"
         self.read_feature_lines(fl_dir)
+
+    def _load_tcmr(self):
+        """TCMR 2D joints for the beta pre-fit (dataset.py:48-79), from
+        ``<garment>_tcmr_output.pkl`` when the scene ships one: record 1 of
+        the dump, {frame_ids, gt_joints2d, pose, betas}.
+
+        Deliberate departure: the JAX package swallows every exception
+        here, which there means a scene without joblib silently skips the
+        pre-fit. This reader needs no joblib, so a file it cannot read is a
+        fault of the file and raises."""
+        self.gt_joints2d = None
+        path = osp.join(self.root, f"{self.garment_type}_tcmr_output.pkl")
+        if osp.exists(path):
+            data = load_joblib(path)[1]
+            self.gt_joints2d = {fid: j for fid, j in
+                                zip(data["frame_ids"].tolist(), data["gt_joints2d"])}
+            self.tcmr_frame_ids = sorted(data["frame_ids"].tolist())
+            self.tcmr_poses = data["pose"]
+            self.tcmr_betas = data["betas"]
+
+    def _adjust_sequences(self):
+        """Hook for subclasses that rewrite poses/trans/shape from side
+        information before the learnable SceneParams are initialized
+        (LargePoseDataset); no-op for the base dataset."""
 
     def read_feature_lines(self, path):
         """Per-frame JSON paths, carrying the last annotation forward for
@@ -411,6 +431,84 @@ class PeopleSnapshotDataset(SceneDataset):
             self.frame_num = total - self.a_pose_end - 1
 
 
+class LargePoseDataset(SceneDataset):
+    """Large-pose stage (reference Large_Pose_SceneDataset,
+    dataset.py:681-894). The videoavatars translation is inconsistent on
+    large motion, so: depth past the A-pose range is frozen and the whole
+    translation OneEuro-smoothed; poses beyond the A-pose range are
+    replaced by TCMR estimates; betas = mean TCMR betas over the A-pose
+    range. ``a_pose=True`` selects the annotated A-pose sub-range (the
+    resume split train_large_pose starts from); ``a_pose=False`` the
+    large-motion remainder. Frames without their own feature-line
+    annotation get fl_masks zeroed (per-frame supervision flags)."""
+
+    def __init__(self, data_root, conds_lens=None, garment_type="", fl_sampling=100,
+                 curve_sampling=1, a_pose=False):
+        self.a_pose = a_pose
+        super().__init__(data_root, conds_lens, garment_type, fl_sampling,
+                         curve_sampling)
+        total = self.frame_num
+        if a_pose:
+            self.start_idx = self.a_pose_start
+            self.frame_num = min(self.a_pose_end - self.a_pose_start + 1, total)
+        else:
+            self.start_idx = self.a_pose_end + 1
+            self.frame_num = total - self.a_pose_end - 1
+        assert self.frame_num > 0, (
+            f"no frames in the {'A-pose' if a_pose else 'large-motion'} "
+            f"range [{self.a_pose_start}, {self.a_pose_end}] of {total}")
+
+    def _adjust_sequences(self):
+        from ..core.inference import one_euro_smooth
+
+        # freeze depth past the annotated range, then OneEuro-smooth the
+        # whole translation track (dataset.py:696-698)
+        self.trans[self.a_pose_end:, -1] = self.trans[self.a_pose_end, -1]
+        self.trans = one_euro_smooth(self.trans, min_cutoff=0.004, beta=0.7,
+                                     d_cutoff=1.0)
+        if self.gt_joints2d is not None:
+            # frame → TCMR record (reference lower_bound over joints_frame_ids)
+            ids = np.asarray(self.tcmr_frame_ids)
+            rec = np.searchsorted(ids, np.arange(len(self.poses)), side="left")
+            rec = np.clip(rec, 0, len(ids) - 1)
+            tp = np.asarray(self.tcmr_poses, np.float32).reshape(-1, 24, 3)[rec]
+            self.poses[self.a_pose_end + 1:] = tp[self.a_pose_end + 1:]
+            arec = rec[self.a_pose_start:self.a_pose_end + 1]
+            self.shape = np.asarray(self.tcmr_betas,
+                                    np.float32)[arec].mean(0).reshape(-1)
+
+    def area_size_statistic(self):
+        """Curve projection weights from SUPERVISED frames only
+        (dataset.py:760-806) — carried-forward annotations would skew the
+        extent statistics on large-motion frames."""
+        sup = self.curve_sampling
+        try:
+            self.curve_sampling = 1
+            keep = self.fl_paths
+            self.fl_paths = [p for p, s in zip(self.fl_paths, self.fl_supervised)
+                             if s]
+            n, self.frame_num = self.frame_num, len(self.fl_paths)
+            super().area_size_statistic()
+        finally:
+            self.curve_sampling = sup
+            self.fl_paths = keep
+            self.frame_num = n
+
+    def __getitem__(self, idx):
+        i, out = super().__getitem__(idx)
+        if not self.fl_supervised[idx + self.start_idx]:
+            out["fl_masks"] = np.zeros_like(out["fl_masks"])
+        return i, out
+
+    def get_init_fl_dataset(self):
+        """Curve-init subset over frames with their own annotation
+        (reference get_init_fl_datasets, dataset.py:750-758)."""
+        idxs = [i for i, s in enumerate(self.fl_supervised) if s]
+        return InitFlDataset(self.root, self.conds_lens, self.garment_type,
+                             self.fl_sampling, self.curve_sampling,
+                             sampler_idx=idxs)
+
+
 class SyntheticDataset(SceneDataset):
     """Synthetic scenes (dataset.py:1004-1066) — same layout, gt meshes
     available under gt_meshes/ for Chamfer evaluation."""
@@ -517,7 +615,8 @@ def get_dataset_and_loader(data_root, conds_lens, batch_size, shuffle=True,
         ds = PeopleSnapshotDataset(data_root, conds_lens, garment_type,
                                    fl_sampling, curve_sampling, a_pose=a_pose)
     elif data_type == "large_pose":
-        raise NotImplementedError("the large-pose dataset is not ported yet")
+        ds = LargePoseDataset(data_root, conds_lens, garment_type,
+                              fl_sampling, curve_sampling, a_pose=a_pose)
     elif data_type == "synthe":
         ds = SyntheticDataset(data_root, conds_lens, garment_type,
                               fl_sampling, curve_sampling)

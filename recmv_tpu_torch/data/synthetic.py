@@ -350,3 +350,56 @@ def shrink_garment_init(params) -> None:
     with torch.no_grad():
         for gsdf in params["garment_sdfs"]:
             gsdf.lins[-1].b[0] = GARMENT_SDF_BIAS
+
+
+def make_large_pose_scene(scene: str, annotated: int, target_betas, depth_drift: float = 0.3,
+                          pose_step: float = 0.002, device=None) -> str:
+    """Turn a ``generate_scene`` scene into a large-pose one, the layout of
+    ``tools/bench_largepose.py``'s scene: feature-line JSONs only for
+    frames < ``annotated`` (the A-pose range), a depth drift after that
+    range (``trans[:, 2]`` ramping to ``depth_drift`` over the later
+    frames), and a TCMR output ``<garment>_tcmr_output.pkl`` written as a
+    plain pickle (the port reads it as it reads joblib's): frame ids, the
+    scene's poses plus ``pose_step``·frame, zero betas, and COCO-style
+    ``gt_joints2d`` (x, y, 1): the synthetic body's 24 joints at
+    ``target_betas`` under the scene's poses and undrifted translation,
+    projected through the scene camera. Returns ``scene``."""
+    import pickle
+
+    from ..models.smpl import smpl_forward
+
+    device = resolve_device(device)
+    with open(osp.join(scene, "scene_meta.json")) as f:
+        meta = json.load(f)
+    n, image = meta["n_frames"], meta["image_size"]
+    for fid in range(annotated, n):
+        path = osp.join(scene, "featurelines", f"{fid}.json")
+        if osp.isfile(path):
+            os.remove(path)
+    rec = dict(np.load(osp.join(scene, "smpl_rec.npz"), allow_pickle=True))
+    poses = rec["poses"].reshape(n, 24, 3).astype(np.float32)
+    trans = rec["trans"].reshape(n, 3).astype(np.float32)
+    cam_npz = np.load(osp.join(scene, "camera.npz"))
+    cam = cam_mod.make_camera({
+        "focal_length": np.asarray([cam_npz["fx"], cam_npz["fy"]]),
+        "princeple_points": np.asarray([cam_npz["cx"], cam_npz["cy"]]),
+        "cam2world_coord_quat": cam_npz["quat"], "world2cam_coord_trans": cam_npz["T"]},
+        (image, image), device=device)
+    _, joints, _ = smpl_forward(synthetic_body_model(),
+                                torch.as_tensor(np.asarray(target_betas, np.float32),
+                                                device=device),
+                                torch.as_tensor(poses, device=device))
+    scr = cam_mod.transform_points_screen(
+        cam, joints + torch.as_tensor(trans, device=device)[:, None])[..., :2].cpu().numpy()
+    gt_j = np.concatenate([scr, np.ones(scr.shape[:-1] + (1,), np.float32)], -1)
+    tc_pose = poses.reshape(n, 72) + pose_step * np.arange(n, dtype=np.float32)[:, None]
+    with open(osp.join(scene, f"{meta['garment_type']}_tcmr_output.pkl"), "wb") as f:
+        pickle.dump({1: {"frame_ids": np.arange(n), "gt_joints2d": gt_j.astype(np.float32),
+                         "pose": tc_pose.astype(np.float32),
+                         "betas": np.zeros((n, 10), np.float32)}}, f)
+    drift = trans.copy()
+    drift[annotated:, 2] += np.linspace(depth_drift / max(n - annotated, 1), depth_drift,
+                                        n - annotated, dtype=np.float32)
+    rec["trans"] = drift
+    np.savez(osp.join(scene, "smpl_rec.npz"), **rec)
+    return scene

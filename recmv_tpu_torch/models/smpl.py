@@ -2,15 +2,17 @@
 model container, the deterministic synthetic humanoid (numpy, copied from
 the JAX module) and forward kinematics / LBS in torch.
 
-The loader for licensed SMPL assets is not ported yet: ``get_smpl``
-returns the synthetic body and raises if an asset file is present in the
-directory given by ``smpl_dir`` or $SMPL_DATA_DIR (the JAX loader's
-``../SMPL/`` default is not searched).
+``load_smpl`` reads licensed SMPL assets (``.pkl`` with latin-1 strings
+and scipy sparse matrices made dense, or ``.npz``; pickles that need
+``chumpy`` are not read, in either package). ``get_smpl`` returns one
+found in ``smpl_dir`` or $SMPL_DATA_DIR and the synthetic body otherwise;
+unlike the JAX loader it searches no ``../SMPL/`` default.
 """
 
 from __future__ import annotations
 
 import os
+import pickle
 
 import numpy as np
 import torch
@@ -188,12 +190,49 @@ def _asset_path(gender: str, smpl_dir: str | None):
     return None
 
 
-def get_smpl(gender: str = "neutral", smpl_dir: str | None = None) -> SMPLModel:
-    """The synthetic body. Raises if ``smpl_dir`` or $SMPL_DATA_DIR holds a
-    licensed asset, whose loader is not ported yet."""
+def _as_dense(x):
+    if hasattr(x, "toarray"):
+        return x.toarray()
+    if hasattr(x, "todense"):
+        return np.asarray(x.todense())
+    return np.asarray(x)
+
+
+def load_smpl(gender: str = "neutral", smpl_dir: str | None = None) -> SMPLModel:
+    """Load licensed SMPL assets (``recmv_tpu/models/smpl.py:71-117``):
+    ``SMPL_{GENDER}.{pkl,npz}`` / ``basicmodel_*`` / ``smpl_{gender}.npz`` in
+    ``smpl_dir`` or $SMPL_DATA_DIR; the first 10 shape directions. Raises
+    FileNotFoundError when there is none (no default directory)."""
     path = _asset_path(gender, smpl_dir)
-    if path is not None:
-        raise NotImplementedError(f"loading licensed SMPL assets ({path}) is not ported yet")
+    if path is None:
+        raise FileNotFoundError(
+            f"No SMPL asset for gender={gender} under {smpl_dir or os.environ.get('SMPL_DATA_DIR')}"
+            "; set SMPL_DATA_DIR or use synthetic_body_model() for tests.")
+    if path.endswith(".pkl"):
+        with open(path, "rb") as f:
+            data = pickle.load(f, encoding="latin1")
+        shapedirs = _as_dense(data["shapedirs"])[:, :, :10]
+        return SMPLModel(
+            _as_dense(data["v_template"]), shapedirs, _as_dense(data["posedirs"]),
+            _as_dense(data["J_regressor"]), _as_dense(data["weights"]),
+            _as_dense(data["kintree_table"])[0] if "kintree_table" in data else SMPL_PARENTS,
+            _as_dense(data["f"]), gender,
+        )
+    data = np.load(path, allow_pickle=True)
+    return SMPLModel(
+        data["v_template"], data["shapedirs"][:, :, :10],
+        data["posedirs"] if "posedirs" in data else None,
+        data["J_regressor"], data["weights"],
+        data["parents"] if "parents" in data else SMPL_PARENTS,
+        data["f"] if "f" in data else data["faces"], gender,
+    )
+
+
+def get_smpl(gender: str = "neutral", smpl_dir: str | None = None) -> SMPLModel:
+    """The licensed asset in ``smpl_dir`` or $SMPL_DATA_DIR when one is
+    there, else the deterministic synthetic body."""
+    if _asset_path(gender, smpl_dir) is not None:
+        return load_smpl(gender, smpl_dir)
     return synthetic_body_model()
 
 

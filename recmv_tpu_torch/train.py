@@ -10,9 +10,13 @@ epoch's end and the per-step log.
 It runs on the CUDA card (``--device cuda``, the default) and raises
 without one; ``--device cpu`` runs it on the CPU. The JAX-only options
 (``--platform``, ``--cache-dir``, ``--exec-cache``) and the compile
-warm-up have no counterpart. ``--save-debug`` and ``--wandb`` are refused:
-the debug overlays need ``utils/debug_vis.py``, which is not ported yet
-(ROADMAP.md queue 1, item 3).
+warm-up have no counterpart. ``--wandb`` is refused: a wandb backend needs
+a network. After each step that remeshed (``info["remeshed"]``, which the
+port's step reports in place of the JAX wall time ``t_remesh > 0.5``),
+``--save-debug`` writes ``utils/debug_vis``'s curve overlays, mask
+comparisons and garment turntables into ``<save>/debug``; without it, and
+with the visualizer on, a remesh past step 1 logs the turntables into
+``<save>/logs``, as ``train.py`` does.
 """
 
 from __future__ import annotations
@@ -25,7 +29,7 @@ import time
 import numpy as np
 import torch
 
-_NOT_PORTED = "{flag} needs utils/debug_vis.py, which the port lacks (ROADMAP.md queue 1, item 3)"
+_NO_WANDB = "--wandb needs a network; the local JSONL/PNG visualizer logs instead"
 
 
 def parse_args(argv=None):
@@ -48,26 +52,27 @@ def parse_args(argv=None):
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--device", default="cuda", help="torch device (cuda or cpu)")
     p.add_argument("--save-debug", action="store_true",
-                   help="not ported: " + _NOT_PORTED.format(flag="--save-debug"))
-    p.add_argument("--wandb", action="store_true",
-                   help="not ported: " + _NOT_PORTED.format(flag="--wandb"))
+                   help="write debug overlays (projected curves, mask comparisons, mesh "
+                        "turntables) into <save>/debug after each remesh")
+    p.add_argument("--wandb", action="store_true", help="refused: " + _NO_WANDB)
     p.add_argument("--no-vis", action="store_true",
-                   help="disable the per-step scalar log (<save>/logs/scalars.jsonl)")
+                   help="disable the per-step scalar log (<save>/logs/scalars.jsonl) and "
+                        "the turntables logged at each remesh")
     return p.parse_args(argv)
 
 
 def main(argv=None):
     """Run the CLI; returns the network."""
     args = parse_args(argv)
-    for flag, on in (("--save-debug", args.save_debug), ("--wandb", args.wandb)):
-        if on:
-            raise SystemExit(f"train: {_NOT_PORTED.format(flag=flag)}")
+    if args.wandb:
+        raise SystemExit(f"train: {_NO_WANDB}")
 
     from . import resolve_device
     from .config import ConfigFactory, dump_config
     from .config.constants import TEMPLATE_GARMENT
     from .core.builder import build_opt_net, resolution_pyramids
     from .data.dataset import get_dataset_and_loader
+    from .utils.debug_vis import save_debug, turntable_curve_mesh
     from .utils.visualizer import get_visualizer
 
     device = resolve_device(args.device)
@@ -164,6 +169,14 @@ def main(argv=None):
                 if visualizer is not None:
                     visualizer.add_scalars({**info, "loss": float(loss), "lr_scale": lr_scale},
                                            steps)
+                remeshed = info["remeshed"] > 0.5
+                if args.save_debug and remeshed:
+                    dbg = osp.join(save_root, "debug")
+                    save_debug(net, batch, fids, ratio, dbg, step=steps, visualizer=visualizer)
+                    turntable_curve_mesh(net, ratio, dbg, step=steps, visualizer=visualizer)
+                elif visualizer is not None and remeshed and steps > 1:
+                    turntable_curve_mesh(net, ratio, osp.join(save_root, "logs"), step=steps,
+                                         visualizer=visualizer, save_meshes=False)
                 msg = " ".join(f"{k}={v:.4f}" for k, v in sorted(info.items()))
                 print(f"[{garment_type}] ep{epoch} step{steps} loss={loss:.5f} "
                       f"({time.time() - t0:.1f}s) {msg}")

@@ -195,6 +195,41 @@ def test_mesh_tiles_kernel_on_visibility_scan(cuda, monkeypatch):
 
 
 @pytest.mark.gpu
+def test_mesh_tiles_kernel_on_turntable(cuda, monkeypatch):
+    """The debug turntable: a seeded closed mesh (an MC sphere with noise,
+    ~65k faces, so tiles exceed the cap) from the 8 turntable cameras at
+    256², tile 32, cap 256, in one launch: the kernel gives the plain
+    version's bits (the cap leaves holes: 4.7% of the pixels covered)."""
+    from recmv_tpu_torch.native import marching_cubes_host
+    from recmv_tpu_torch.ops import rasterizer
+    from recmv_tpu_torch.ops.mesh_raster import _mesh_tiles_torch, mesh_tiles
+    from recmv_tpu_torch.utils.debug_vis import turntable_cameras
+
+    lin = np.linspace(-0.6, 0.6, 101, dtype=np.float32)
+    z, y, x = np.meshgrid(lin, lin, lin, indexing="ij")
+    v, f = marching_cubes_host(np.sqrt(x * x + y * y + z * z) - 0.5, 0.0, (-0.6,) * 3,
+                               (lin[1] - lin[0],) * 3)
+    v = v + 0.002 * np.random.RandomState(3).randn(*v.shape).astype(np.float32)
+    verts = torch.as_tensor(v, device=cuda)
+    scr = torch.stack([rasterizer.screen_with_cam_z(c, verts)
+                       for c in turntable_cameras(8, 256, cuda)])
+    mesh_tiles.launches = 0
+    args = rasterizer.mesh_tile_inputs(scr, torch.as_tensor(f, device=cuda), (256, 256),
+                                       tile=32, cap=256) + (32,)
+    prm, fid, cnt, Wt, tile = args
+    assert prm.shape[:2] == (8, 64) and prm.shape[3] == 256 and Wt == 8
+    assert int((cnt == 256).sum()) > 0                    # tiles over the cap
+    with torch.no_grad():
+        k = mesh_tiles(*args)
+        p = _mesh_tiles_torch(*args)
+    torch.cuda.synchronize()
+    assert mesh_tiles.launches == 1
+    for a, b in zip(k, p):
+        assert torch.equal(a, b)
+    assert (p[1] >= 0).float().mean().item() > 0.01
+
+
+@pytest.mark.gpu
 def test_composite_kernel_matches_plain(cuda):
     from recmv_tpu_torch.ops.composite import _composite_tiles_torch, composite_tiles
 
@@ -745,25 +780,27 @@ def test_culled_mesh_walk_matches_dense(tile):
 
 
 def test_port_imports_no_jax():
-    """Every module of the port imports with JAX made unimportable."""
+    """Every module of the port, and ``chip_smoke.py``, imports with JAX,
+    the JAX package, joblib and OpenCV made unimportable (the card's
+    machine has none of them)."""
     code = (
         "import sys, importlib, pkgutil\n"
-        "sys.modules['jax'] = None\n"
-        "sys.modules['recmv_tpu'] = None\n"
+        "for m in ('jax', 'recmv_tpu', 'joblib', 'cv2'):\n"
+        "    sys.modules[m] = None\n"
         "import recmv_tpu_torch\n"
         "names = [m.name for m in pkgutil.walk_packages(recmv_tpu_torch.__path__, "
         "'recmv_tpu_torch.')]\n"
         "for n in names:\n"
         "    importlib.import_module(n)\n"
         "import chip_smoke\n"
-        "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'recmv_tpu')"
-        " and sys.modules[m] is not None]\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'recmv_tpu',"
+        " 'joblib', 'cv2') and sys.modules[m] is not None]\n"
         "assert not bad, bad\n"
         "print(len(names))\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
                          text=True, timeout=300)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.split()[-1]) >= 53
+    assert int(out.stdout.split()[-1]) >= 58
 
 
 def test_build_compiles_only_the_ports_sources(monkeypatch):
@@ -790,7 +827,7 @@ def test_build_compiles_only_the_ports_sources(monkeypatch):
 
 @pytest.mark.parametrize("entry", ["generate_scene", "build_opt_net", "GarmentOptimNetwork",
                                    "skinner_from_jax", "scene_from_jax", "laplacian_deform",
-                                   "nricp_fit", "visible_vertex_mask"])
+                                   "nricp_fit", "visible_vertex_mask", "train_large_pose"])
 def test_entry_points_need_a_card_or_a_device(monkeypatch, tmp_path, entry):
     """The port's entry points run on the card when no device is given,
     and raise (never fall back to the CPU) when there is no card. The
@@ -802,6 +839,7 @@ def test_entry_points_need_a_card_or_a_device(monkeypatch, tmp_path, entry):
     from recmv_tpu_torch.core.inference import visible_vertex_mask
     from recmv_tpu_torch.geometry.laplacian import laplacian_deform
     from recmv_tpu_torch.geometry.nricp import nricp_fit
+    from recmv_tpu_torch.train_large_pose import main as train_large_pose
 
     call = {"generate_scene": lambda: generate_scene(str(tmp_path / "scene")),
             "build_opt_net": lambda: build_opt_net(None, None, str(tmp_path)),
@@ -812,7 +850,9 @@ def test_entry_points_need_a_card_or_a_device(monkeypatch, tmp_path, entry):
                                                          np.zeros((1, 3))),
             "nricp_fit": lambda: nricp_fit(np.zeros((3, 3)), [[0, 1, 2]], np.zeros((3, 3))),
             "visible_vertex_mask": lambda: visible_vertex_mask(np.zeros((3, 3)),
-                                                               [[0, 1, 2]])}[entry]
+                                                               [[0, 1, 2]]),
+            "train_large_pose": lambda: train_large_pose(
+                ["--conf", "missing.conf", "--data-root", str(tmp_path / "scene")])}[entry]
     if not torch.cuda.is_available():          # no card here: the default must raise
         with pytest.raises(RuntimeError, match="no CUDA device"):
             call()

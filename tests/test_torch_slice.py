@@ -386,20 +386,23 @@ def test_port_forward_step_on_port_scene(scenes, tmp_path):
 def test_get_smpl_searches_only_the_given_directory(tmp_path, monkeypatch):
     """An asset beside the working directory (the JAX loader's ``../SMPL/``
     default) is never looked at; one in ``smpl_dir`` or $SMPL_DATA_DIR is
-    refused, its loader not being ported."""
-    from recmv_tpu_torch.models.smpl import get_smpl
+    loaded."""
+    from recmv_tpu_torch.models.smpl import get_smpl, synthetic_body_model
 
+    body = synthetic_body_model(n_subdiv=16)
     (tmp_path / "SMPL").mkdir()
-    (tmp_path / "SMPL" / "SMPL_NEUTRAL.pkl").write_bytes(b"")
+    np.savez(tmp_path / "SMPL" / "SMPL_NEUTRAL.npz", v_template=body.v_template,
+             shapedirs=body.shapedirs, J_regressor=body.J_regressor, weights=body.weights,
+             parents=body.parents, f=body.faces)
     (tmp_path / "work").mkdir()
     monkeypatch.chdir(tmp_path / "work")
     monkeypatch.delenv("SMPL_DATA_DIR", raising=False)
     assert get_smpl("neutral").gender == "synthetic"
-    with pytest.raises(NotImplementedError):
-        get_smpl("neutral", str(tmp_path / "SMPL"))
+    assert get_smpl("neutral").num_verts != body.num_verts
+    model = get_smpl("neutral", str(tmp_path / "SMPL"))
+    assert model.gender == "neutral" and model.num_verts == body.num_verts
     monkeypatch.setenv("SMPL_DATA_DIR", str(tmp_path / "SMPL"))
-    with pytest.raises(NotImplementedError):
-        get_smpl("neutral")
+    assert get_smpl("neutral").gender == "neutral"
 
 
 _ACCESSED = None          # paths touched while a test records them
@@ -463,14 +466,26 @@ def test_build_opt_net_stays_inside_checkout(scenes, tmp_path, monkeypatch):
 
 
 def test_dataset_refuses_tcmr_joints(scenes, tmp_path):
-    """A scene that ships TCMR 2D joints needs the beta pre-fit, which is
-    not ported: the dataset refuses it rather than ignore them."""
+    """A scene's TCMR 2D joints feed the beta pre-fit: a file the dataset
+    cannot read raises rather than being ignored (the JAX dataset skips
+    it silently), and a readable one is loaded."""
+    import pickle
     import shutil
 
     from recmv_tpu_torch.data.dataset import get_dataset_and_loader
 
     scene = shutil.copytree(scenes[1], str(tmp_path / "scene"))
-    open(os.path.join(scene, "synthetic-tube_tcmr_output.pkl"), "wb").close()
-    with pytest.raises(NotImplementedError, match="TCMR"):
+    path = os.path.join(scene, "synthetic-tube_tcmr_output.pkl")
+    open(path, "wb").close()
+    with pytest.raises(EOFError):
         get_dataset_and_loader(scene, {"deformer": 256}, 2, garment_type="synthetic-tube",
                                data_type="synthe")
+    joints = np.ones((2, 17, 3), np.float32)
+    with open(path, "wb") as f:
+        pickle.dump({1: {"frame_ids": np.arange(2), "gt_joints2d": joints,
+                         "pose": np.zeros((2, 72), np.float32),
+                         "betas": np.zeros((2, 10), np.float32)}}, f)
+    ds, _ = get_dataset_and_loader(scene, {"deformer": 256}, 2, garment_type="synthetic-tube",
+                                   data_type="synthe")
+    assert sorted(ds.gt_joints2d) == [0, 1] and ds.tcmr_frame_ids == [0, 1]
+    np.testing.assert_array_equal(ds.gt_joints2d[1], joints[1])
