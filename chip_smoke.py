@@ -135,14 +135,32 @@ Phases, one printed line each (or more):
     the debug PNGs and turntable exist, each large-pose step runs no ①
     and launches K1 (ray seeding), K2 and K3 once each, and
     ``large_pose.ckpt`` holds ``latest.ckpt``'s SDF leaves bit for bit
-    with a moved translator.
+    with a moved translator;
+18. the port's benches, with the kernels' launch counts set to 0 before
+    and read after: ``tools.bench_fullstep.main`` at full width (a
+    4-frame synthetic-tube scene at 1080², the fine pyramid (321, 417,
+    225) with the marching cubes' buffers for it, 2,048 rays, batch 1, 40
+    IGR epochs, the first step, 2 timed steps, a warm remesh and the
+    counted step of ``step_cost_analysis``), printing its seconds per
+    step, remesh seconds, ``step_gflops`` and ``mfu_pct_vs_f32_peak``;
+    then K1 against its plain version on the last step's three z-buffers
+    (① body and garment, seeding), K2 and K3 on its mask composite, as in
+    phases 8 and 12, each with its time, bound, share, Σcnt and pairs;
+    ``tools.bench_quality.main`` at a reduced size (128 px, 4 frames, 12
+    steps, 40 IGR epochs, the quick NRICP schedules), whose scores must be
+    finite and whose keys must hold those of the root
+    ``bench_quality.json``; the hot step (``recmv_tpu_torch.bench.main``,
+    8,192 rays, 3 timed iterations) and its summary line. It raises on a
+    non-finite result, a missing key or a kernel of the benches' path that
+    never launched.
 
 A kernel's bound is the larger of the bytes it must move (each input
 read once: the listed candidates, the counts, the upstream gradient;
 each output written once) over 3.35 TB/s and the operations the live
 pairs need over 67 TFLOP/s (H100 SXM float32, published peaks). Then a
 JSON line with each kernel's record (launches from the training run of
-phase 10, K1's with phase 16's added, all three with phase 17's added;
+phase 10, K1's with phase 16's added, all three with phases 17's and
+18's added;
 error, times and bound from phases 8 and 12; no PyTorch call
 computes these functions, so ``library_ms`` is null), the card's name and
 power limit, and last ``{"ok": true, "device": {...}}``. Any failure
@@ -156,10 +174,11 @@ import json
 import math
 import os
 import os.path as osp
-import subprocess
 import sys
 import tempfile
 import time
+
+from recmv_tpu_torch.tools import card_line  # the card's name and power limit (nvidia-smi)
 
 ROOT = osp.dirname(osp.abspath(__file__))
 RATIO = {"sdfRatio": 1.0, "deformerRatio": 0.5, "renderRatio": 1.0}
@@ -176,20 +195,14 @@ REG_DIST_BOUND = 0.05                  # mean registered -> MC distance the phas
 CAP_PROBE = 4096                       # the larger mesh cap phase 16 compares with
 LP_ANNOTATED, LP_STEPS = 8, 4          # phase 17: the A-pose range, large-pose steps
 LP_TARGET_BETAS = (1.0, -0.5)          # the betas of the scene's TCMR joints
+FS_STEPS = 2                           # phase 18: bench_fullstep's timed steps
+QUALITY_ARGS = ["--image", "128", "--frames", "4", "--steps", "12", "--init-epochs", "40"]
+HOT_ITERS = 3                          # phase 18: the hot step's timed iterations
 SKINNER_RES = (129, 225, 65)
-HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory, published peak
-FP32_FLOP_PER_S = 67e12        # H100 SXM float32 outside the tensor cores, published peak
 
 
 def log(msg: str) -> None:
     print(msg, flush=True)
-
-
-def card_line() -> str:
-    out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True, text=True,
-                         check=True, timeout=60)
-    return out.stdout.strip().splitlines()[0]
 
 
 def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
@@ -226,56 +239,6 @@ def ptxas_summary(log: str) -> list:
             lines.append(f"{name}: {ln.split(':', 1)[1].strip()}; {frame}")
             name, frame = None, ""
     return lines
-
-
-def bound(nbytes: float, flops: float) -> dict:
-    """The least time the card could take: bytes over the memory rate or
-    operations over the float32 rate, whichever is larger."""
-    tb, to = nbytes / HBM_BYTES_PER_S * 1e3, flops / FP32_FLOP_PER_S * 1e3
-    return dict(bound_ms=max(tb, to), bound_by="bytes" if tb >= to else "operations")
-
-
-def composite_work(args) -> tuple:
-    """(Σcnt, live pairs) of composite_tiles' arguments: the candidates the
-    kernels read and the (pixel, candidate) pairs with w > 0."""
-    import torch
-
-    from recmv_tpu_torch.ops.composite import _chunks, _weights
-    from recmv_tpu_torch.ops.mesh_raster import tile_pixels
-
-    cx, cy, val, _, inv_r2, cnt, Wt, tile = args[:8]
-    B, T, cap = cx.shape
-    px, py = tile_pixels(T, Wt, tile, cx.device)
-    live = 0
-    with torch.no_grad():
-        for t0, t1 in _chunks(B, T, cap, tile * tile):
-            live += int((_weights(cx, cy, val, inv_r2, cnt, px, py, t0, t1)[1] > 0).sum())
-    return int(cnt.sum()), live
-
-
-def mesh_work(args) -> tuple:
-    """(Σcnt, covered pairs) of mesh_tiles' arguments: the candidate faces
-    the kernel reads and the (pixel, face) pairs inside the face."""
-    import torch
-
-    from recmv_tpu_torch.ops.composite import _chunks
-    from recmv_tpu_torch.ops.mesh_raster import tile_pixels
-
-    prm, _, cnt, Wt, tile = args
-    B, T, _, cap = prm.shape
-    px, py = tile_pixels(T, Wt, tile, prm.device)
-    k = torch.arange(cap, device=prm.device)
-    covered = 0
-    with torch.no_grad():
-        for t0, t1 in _chunks(B, T, cap, tile * tile):
-            P = prm[:, t0:t1, :, :, None]
-            x, y = px[None, t0:t1, None, :], py[None, t0:t1, None, :]
-            inside = (k < cnt[:, t0:t1, None])[..., None]
-            for e in range(3):
-                inside = inside & (P[:, :, 3 * e] * y + P[:, :, 3 * e + 1] * x
-                                   + P[:, :, 3 * e + 2] > 0.0)
-            covered += int(inside.sum())
-    return int(cnt.sum()), covered
 
 
 def sphere_screen_mesh(dev):
@@ -325,6 +288,7 @@ def compare_mesh_tiles(tag: str, args, min_cover: float) -> dict:
     import torch
 
     from recmv_tpu_torch.ops.mesh_raster import _mesh_tiles_torch, mesh_tiles
+    from recmv_tpu_torch.utils.profiling import bound, mesh_tiles_cost
 
     with torch.no_grad():
         got, want = mesh_tiles(*args), _mesh_tiles_torch(*args)
@@ -337,13 +301,10 @@ def compare_mesh_tiles(tag: str, args, min_cover: float) -> dict:
         ms = cuda_ms(lambda: mesh_tiles(*args), 20)
         plain_ms = cuda_ms(lambda: _mesh_tiles_torch(*args), 3)
         list_mean, list_max = warp_lists(args)
-    # bytes: the listed faces' 12 coefficients and id, the counts, zbuf,
-    # face and 3 barycentrics per pixel; operations: 22 per covered pair
-    # (3 edge functions, inverse depths, reciprocal, barycentrics, compare)
-    sum_cnt, pairs = mesh_work(args)
+    cost = mesh_tiles_cost(args)
+    sum_cnt, pairs = cost["sum_cnt"], cost["pairs"]
     B, T = args[2].shape
-    npix = args[4] ** 2
-    b = bound(4.0 * (13 * sum_cnt + B * T + 5 * B * T * npix), 22.0 * pairs)
+    b = bound(cost["bytes"], cost["flops"])
     log(f"[{tag}] mesh_tiles: frames {B} tiles {T} cap {args[0].shape[3]} max count "
         f"{int(args[2].max())} sum count {sum_cnt} covered pairs {pairs} covered {covered:.4f} "
         f"faces listed per warp mean {list_mean:.2f} max {list_max} same bits {same} face-id "
@@ -361,6 +322,7 @@ def compare_composite_tiles(tag: str, args) -> dict:
     import torch
 
     from recmv_tpu_torch.ops.composite import _composite_tiles_torch, composite_tiles
+    from recmv_tpu_torch.utils.profiling import bound, composite_tiles_cost
 
     with torch.no_grad():      # the recorded arguments may carry a graph
         got, want = composite_tiles(*args), _composite_tiles_torch(*args)
@@ -368,16 +330,15 @@ def compare_composite_tiles(tag: str, args) -> dict:
         err = (got - want).abs().max().item()
         ms, plain_ms = cuda_ms(lambda: composite_tiles(*args), 20), cuda_ms(
             lambda: _composite_tiles_torch(*args), 3)
-    # bytes: the listed candidates (cx, cy, val, feat[C]), the counts and
-    # the output; operations: 15 + 2C per live pair (weight, chain, sums)
-    sum_cnt, live = composite_work(args)
+    cost = composite_tiles_cost(args)
+    sum_cnt, live = cost["sum_cnt"], cost["pairs"]
     (B, T, cap), C = args[0].shape, args[3].shape[2]
-    b = bound(4.0 * ((3 + C) * sum_cnt + B * T + B * T * C * args[7] ** 2),
-              (15.0 + 2 * C) * live)
+    b = bound(cost["bytes"], cost["flops"])
     log(f"[{tag}] composite_tiles: frames {B} tiles {T} cap {cap} channels {C} max count "
         f"{int(args[5].max())} sum count {sum_cnt} live pairs {live} coverage "
         f"{want.mean().item():.4f} max abs err {err:.3e} kernel {ms:.4f} ms plain "
-        f"{plain_ms:.3f} ms bound {b['bound_ms']:.5f} ms ({b['bound_by']})")
+        f"{plain_ms:.3f} ms bound {b['bound_ms']:.5f} ms ({b['bound_by']}, share "
+        f"{b['bound_ms'] / ms:.4f})")
     if err > 1e-5 or want.max().item() < 0.5:
         raise AssertionError("composite_tiles kernel disagrees with its plain version")
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, **b, library_ms=None)
@@ -405,6 +366,7 @@ def compare_composite_bwd(tag: str, args) -> dict:
     import torch
 
     from recmv_tpu_torch.ops.composite import _composite_tiles_bwd_torch, composite_tiles_bwd
+    from recmv_tpu_torch.utils.profiling import bound, composite_tiles_bwd_cost
 
     with torch.no_grad():      # the recorded arguments may carry a graph
         got, want = composite_tiles_bwd(*args), _composite_tiles_bwd_torch(*args)
@@ -416,19 +378,15 @@ def compare_composite_bwd(tag: str, args) -> dict:
         same = all(torch.equal(a, c) for a, _, c in pairs)
         ms, plain_ms = cuda_ms(lambda: composite_tiles_bwd(*args), 20), cuda_ms(
             lambda: _composite_tiles_bwd_torch(*args), 3)
-    # bytes: the listed candidates, the counts, the upstream gradient and
-    # the outputs (dcx, dcy and dfeat over the whole cap); operations per
-    # live pair: the forward chain (13), then 24 + 7C (+ 2C for dfeat) for
-    # the reverse step and the sums
-    sum_cnt, live = composite_work(args)
+    cost = composite_tiles_bwd_cost(args)
+    sum_cnt, live = cost["sum_cnt"], cost["pairs"]
     (B, T, cap), C, need = args[0].shape, args[3].shape[2], bool(args[9])
-    nv = 2 + (C if need else 0)
-    b = bound(4.0 * ((3 + C) * sum_cnt + B * T + B * T * C * args[7] ** 2 + B * T * cap * nv),
-              (37.0 + 7 * C + (2 * C if need else 0)) * live)
+    b = bound(cost["bytes"], cost["flops"])
     log(f"[{tag}] composite_tiles_bwd: frames {B} tiles {T} cap {cap} channels {C} dfeat "
         f"{need} max count {int(args[5].max())} sum count {sum_cnt} live pairs {live} max "
         f"|plain| {scale:.4e} max abs err {err:.3e} deterministic {same} kernel {ms:.4f} ms "
-        f"plain {plain_ms:.3f} ms bound {b['bound_ms']:.5f} ms ({b['bound_by']})")
+        f"plain {plain_ms:.3f} ms bound {b['bound_ms']:.5f} ms ({b['bound_by']}, share "
+        f"{b['bound_ms'] / ms:.4f})")
     if err > 1e-5 * scale or not same or scale <= 0.0:
         raise AssertionError("composite_tiles_bwd kernel disagrees with its plain version")
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, **b, library_ms=None)
@@ -1496,6 +1454,84 @@ def large_pose_run(dev, work: str) -> tuple:
     return launches, kres
 
 
+def bench_run(dev, work: str) -> dict:
+    """Phase 18: the port's benches (``bench_fullstep`` at full width,
+    ``bench_quality`` at a reduced size, the hot step), with the kernels'
+    launch counts set to 0 before them and read after; then K1, K2 and K3
+    against their plain versions on the fullstep's last step. Returns the
+    launch counts."""
+    import numpy as np
+
+    from recmv_tpu_torch import bench
+    from recmv_tpu_torch.ops import rasterizer
+    from recmv_tpu_torch.ops.composite import composite_tiles, composite_tiles_bwd
+    from recmv_tpu_torch.ops.mesh_raster import mesh_tiles
+    from recmv_tpu_torch.tools import bench_fullstep, bench_quality
+
+    store, k1_calls = {}, []
+    mesh_tiles.launches = composite_tiles.launches = composite_tiles_bwd.launches = 0
+    t_phase = t0 = time.time()
+    with rasterizer_kernels(recording(composite_tiles, store, "composite_tiles"),
+                            recording_calls(rasterizer.mesh_tiles, k1_calls)):
+        fs = bench_fullstep.main(["--steps", str(FS_STEPS), "--scene", osp.join(work, "bench"),
+                                  "--out", osp.join(work, "bench_fullstep.json")])
+    cost = fs["step_cost"]
+    log(f"[18] bench_fullstep at {fs['config']['image']}², pyramid {fs['config']['pyramid']}, "
+        f"{fs['rays_per_step']} rays, in {time.time() - t0:.1f} s: first step "
+        f"{fs['first_step_s']} s, {fs['sec_per_step']} s/step, amortized "
+        f"{fs['sec_per_step_amortized']} s/step, remesh first {fs['remesh_first_s']} s warm "
+        f"{fs['remesh_warm_s']} s, garment verts {fs['garment_verts']}, phases_ms "
+        f"{json.dumps(fs['phase_means_ms'])}, rays converged {fs['rays_converged_last_step']}, "
+        f"peak {fs['peak_memory_gib']} GiB; step_gflops {cost['step_gflops']} (GEMMs "
+        f"{cost['gemm_gflops']}, kernels {json.dumps(cost['kernel_gflops'])}), "
+        f"{cost['achieved_tflops_per_s']} TFLOP/s, mfu_pct_vs_f32_peak "
+        f"{cost['mfu_pct_vs_f32_peak']} ({fs['device']})")
+    if not all(np.isfinite([fs["sec_per_step"], fs["remesh_warm_s"], cost["step_gflops"]])):
+        raise AssertionError("non-finite fullstep results")
+
+    t0 = time.time()
+    q = bench_quality.main(QUALITY_ARGS + ["--scene", osp.join(work, "quality"),
+                                           "--out", osp.join(work, "bench_quality.json")])
+    with open(osp.join(ROOT, "bench_quality.json")) as f:
+        missing = set(json.load(f)) - set(q)
+    scores = [q["chamfer_l2_sym_mean"], q["pred_to_gt_dist_mean"],
+              q["chamfer_l2_sym_vs_closed_mean"], *q["mc_pred_to_gt_trend"].values(),
+              *q["mc_fresh_to_gt_trend"].values()]
+    log(f"[18] bench_quality {json.dumps(q['config'])} in {time.time() - t0:.1f} s: "
+        f"chamfer_l2_sym_mean {q['chamfer_l2_sym_mean']} pred_to_gt_dist_mean "
+        f"{q['pred_to_gt_dist_mean']} mc_pred_to_gt_trend {json.dumps(q['mc_pred_to_gt_trend'])}"
+        f" mc_fresh_to_gt_trend {json.dumps(q['mc_fresh_to_gt_trend'])}, init "
+        f"{q['t_init_s']} s train {q['t_train_s']} s registration {q['t_registration_s']} s")
+    if missing or not np.isfinite(scores).all():
+        raise AssertionError(f"bench_quality: missing keys {missing} or non-finite scores")
+
+    line = bench.main(["--iters", str(HOT_ITERS), "--bench-dir", work])
+    extra = line["extra"]
+    log(f"[18] hot step: {extra['rays']} rays, {extra['hot_step_ms']} ms, "
+        f"{extra['rays_per_sec_per_chip']} rays/s, {extra['hot_step_gflops']} GFLOP, "
+        f"mfu_pct_vs_f32_peak {extra['mfu_pct_vs_f32_peak']}, converged "
+        f"{extra['rays_converged']}; summary {line['metric']} = {line['value']} "
+        f"{line['unit']}, vs_baseline {line['vs_baseline']}")
+    if not np.isfinite([extra["hot_step_ms"], extra["loss"], line["value"]]).all():
+        raise AssertionError("non-finite hot step results")
+    launches = {"mesh_tiles": mesh_tiles.launches, "composite_tiles": composite_tiles.launches,
+                "composite_tiles_bwd": composite_tiles_bwd.launches}
+    log(f"[18] launches {json.dumps(launches)}")
+    if min(launches.values()) < 1:
+        raise AssertionError(f"a kernel of the benches never launched: {launches}")
+
+    # the fullstep's last step (step_cost_analysis'): K1 on its ① body, ①
+    # garment and seeding z-buffers, K2 and K3 on its mask composite
+    for name, args in zip(("① body", "① garment", "seeding"), k1_calls[-3:]):
+        compare_mesh_tiles(f"18 {name} z-buffer", args, min_cover=0.002)
+    fwd = store["composite_tiles"]
+    compare_composite_tiles("18", fwd)
+    compare_composite_bwd("18", fwd + (store["composite_tiles.grad"].contiguous(),
+                                       fwd[3].requires_grad))
+    log(f"[18] phase 18 ran {time.time() - t_phase:.1f} s")
+    return launches
+
+
 def turntable_cap_probe(net) -> None:
     """The turntable's 8 views of the garment of ``net`` (its current MC
     mesh) at the turntable's cap of 256 and at ``CAP_PROBE``: the share
@@ -1688,6 +1724,11 @@ def main() -> int:
     # stage; its launches count
     lp_launches, _ = large_pose_run(dev, tempfile.mkdtemp(prefix="recmv_chip_smoke_lp_"))
     for n, c in lp_launches.items():
+        launches[n] += c
+    torch.cuda.empty_cache()
+
+    # phase 18: the benches; their launches count
+    for n, c in bench_run(dev, tempfile.mkdtemp(prefix="recmv_chip_smoke_bench_")).items():
         launches[n] += c
 
     sources = {"mesh_tiles": ("recmv_tpu_torch/csrc/mesh_raster.cu",

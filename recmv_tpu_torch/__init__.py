@@ -16,7 +16,9 @@ the IGR fits of the SDFs), checkpoints and the training CLI
 (``python -m recmv_tpu_torch.train``); inference and registration; the
 body priors (the TCMR joints, the beta pre-fit, licensed SMPL assets),
 the large-pose stage (``python -m recmv_tpu_torch.train_large_pose``)
-and the debug renders. The three TPU kernels
+and the debug renders; and the benches and the quality evaluation
+(``recmv_tpu_torch.tools``, ``python -m recmv_tpu_torch.bench``). The
+three TPU kernels
 on that path (the mesh z-buffer, the point composite and its backward) are
 hand-written CUDA C++ for Hopper (``csrc/``), built with ``nvcc`` at first
 use and bound with ctypes (``_build.py``); each sits beside a plain

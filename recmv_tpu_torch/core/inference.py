@@ -244,11 +244,15 @@ class GarmentInference:
                                   self.net.statics.garment_size)
 
     @torch.no_grad()
-    def ensure_registration(self, ratio, save_dir: str | None = None, sew_waist: bool = True):
+    def ensure_registration(self, ratio, save_dir: str | None = None, sew_waist: bool = True,
+                            nricp_cfg: NricpConfig | None = None,
+                            refine_cfg: NricpConfig | None = None):
         """Register every garment once (cached as ``registry_<name>.obj``
         with its boundary labels in ``registry_<name>_labels.npz``);
         two-garment subjects get their waists sewn afterwards
-        (``Laplacian_Deform_upper_and_domn_Optimzier``)."""
+        (``Laplacian_Deform_upper_and_domn_Optimzier``). ``nricp_cfg`` and
+        ``refine_cfg`` go to ``register_garment`` (None: its production
+        schedules); the quality bench passes its quick ones."""
         net = self.net
         if net.mesh is None:
             net.marching_cube_update(_ratio_dict(ratio))
@@ -286,7 +290,8 @@ class GarmentInference:
             rv, rf, labels = register_garment(
                 net.garment_templates[gi], mc_v, mc_f,
                 {n: curves_by_name[n] for n in FL_EXTRACT[gname] if n in curves_by_name},
-                save_path=cache, device=self.device, times=times)
+                save_path=cache, nricp_cfg=nricp_cfg, refine_cfg=refine_cfg,
+                device=self.device, times=times)
             self.registered[gname] = (rv, rf)
             reg_labels[gname] = labels
             if lcache:

@@ -25,7 +25,8 @@ of ``--quality higher`` (``marching_cube_update(higher=True)``: a fresh
 body and the JAX host path's buffers) and the scene's exchange with
 ``dataset.params`` (``sync_scene_to_dataset``, ``invalidate_scene``).
 
-Not ported yet: the large-pose stage.
+For the benches, ``step_cost_analysis`` counts the floating-point
+operations of a training step.
 """
 
 from __future__ import annotations
@@ -56,6 +57,7 @@ from ..ops.math3d import dct_null_space, gm_robust_error
 from ..ops.rasterizer import composite_points, find_surface_points, rasterize_mesh, screen_with_cam_z
 from ..ops.seg3d import Seg3dConfig, final_grid_spacing, seg3d_forward
 from ..utils.checkpoint import read_checkpoint, write_checkpoint
+from ..utils.profiling import count_flops
 from . import losses as L
 from . import visibility as V
 from .surface_ps import attach_implicit_surface, optimize_surface_points, ray_constraint
@@ -1105,6 +1107,18 @@ class GarmentOptimNetwork:
                      for k, v in info.items()}
         self.opt_times += 1.0
         return self.info["m_loss_total"], self.info
+
+    def step_cost_analysis(self, step) -> dict:
+        """Floating-point operations of ``step()``, a callable that runs one
+        training step (the benches pass ``lambda: net.train_step(...)``),
+        for the MFU the benches report (the JAX package reads XLA's cost
+        analysis of its compiled step): the aten GEMMs of the forward, the
+        backward and the double backward as ``FlopCounterMode`` counts them,
+        plus the operations K1–K3 do on the arguments the step gave them
+        (``utils.profiling.count_flops``), which the counter does not see.
+        Returns {"flops", "bytes accessed": None, ...}: no counter of device
+        memory traffic covers the eager step."""
+        return count_flops(step)
 
     # ------------------------------------------------------------------
     # one-time initializations

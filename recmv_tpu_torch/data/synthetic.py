@@ -17,6 +17,7 @@ from __future__ import annotations
 import json
 import os
 import os.path as osp
+import shutil
 
 import numpy as np
 import torch
@@ -331,9 +332,39 @@ def generate_scene(out_dir: str, n_frames: int = 10, image_size: int = 256,
              shape=np.zeros(10, np.float32), gender="synthetic")
     np.savez(osp.join(out_dir, "camera.npz"), **make_camera_params(image_size))
     with open(osp.join(out_dir, "scene_meta.json"), "w") as f:
-        json.dump({"version": SCENE_VERSION, "garment_type": garment_type,
-                   "n_frames": n_frames, "image_size": image_size}, f)
+        json.dump(_scene_meta(n_frames, image_size, yaw_range, skinner_res, raster_cap,
+                              garment_type), f)
     return out_dir
+
+
+def _scene_meta(n_frames, image_size, yaw_range, skinner_res, raster_cap, garment_type) -> dict:
+    """``scene_meta.json``: the JAX generator's keys (version, garment type,
+    frames, image size) and the other arguments the frames depend on."""
+    return {"version": SCENE_VERSION, "garment_type": garment_type, "n_frames": int(n_frames),
+            "image_size": int(image_size), "yaw_range": float(yaw_range),
+            "skinner_res": [int(r) for r in skinner_res], "raster_cap": int(raster_cap)}
+
+
+def ensure_scene(out_dir: str, n_frames: int = 10, image_size: int = 256,
+                 yaw_range: float = 2 * np.pi, skinner_res=(49, 81, 25), raster_cap: int = 1024,
+                 garment_type: str = "synthetic-tube", device=None) -> str:
+    """A cached ``generate_scene`` scene (counterpart of the JAX
+    ``ensure_scene``): reuse ``out_dir`` when its ``scene_meta.json``
+    records this generator's ``SCENE_VERSION`` and these arguments;
+    otherwise delete it, with the ``result/`` caches computed from it
+    (initialization checkpoints, skinner caches), and generate it anew.
+    Returns the scene directory."""
+    want = _scene_meta(n_frames, image_size, yaw_range, skinner_res, raster_cap, garment_type)
+    meta_path = osp.join(out_dir, "scene_meta.json")
+    if osp.isfile(meta_path):
+        with open(meta_path) as f:
+            if json.load(f) == want:
+                return out_dir
+    if osp.isdir(out_dir):
+        shutil.rmtree(out_dir)
+    return generate_scene(out_dir, n_frames=n_frames, image_size=image_size,
+                          yaw_range=yaw_range, skinner_res=skinner_res, raster_cap=raster_cap,
+                          garment_type=garment_type, device=device)
 
 
 # The garment SDF's geometric init has its zero level near radius 0.5, so

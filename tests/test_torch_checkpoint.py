@@ -7,7 +7,9 @@
     gets them from its templates;
 (b) a checkpoint written by the JAX package's ``save_checkpoint`` loads
     into the port in a subprocess in which ``import jax`` and ``import
-    recmv_tpu`` fail, and gives the JAX state exactly;
+    recmv_tpu`` fail, and gives the JAX state exactly; in such a
+    subprocess the benches (``recmv_tpu_torch.bench`` and every
+    ``recmv_tpu_torch.tools`` module) import too;
 (c) ``python -m recmv_tpu_torch.train`` with ``--device cpu`` on a
     2-frame 48 px synthetic-tube scene: the initialization (4 IGR epochs,
     2 curve iterations), 1 step, ``latest.ckpt``, then a run resumed from
@@ -264,6 +266,36 @@ def test_reads_a_jax_checkpoint_without_jax(scene, tmp_path):
     _assert_same(got["boxes"], net_j.garment_extract_bboxes)
     _assert_same(got["templates"], [(t.name, t.verts, t.faces, t.boundary_labels)
                                     for t in net_j.garment_templates])
+
+
+_BENCHES = r"""
+import importlib, pkgutil, sys
+sys.modules["jax"] = None
+sys.modules["recmv_tpu"] = None
+import recmv_tpu_torch.bench
+import recmv_tpu_torch.tools as tools
+names = [m.name for m in pkgutil.iter_modules(tools.__path__, "recmv_tpu_torch.tools.")]
+for n in names:
+    importlib.import_module(n)
+bad = [m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "recmv_tpu")
+       and sys.modules[m] is not None]
+assert not bad, bad
+print(" ".join(sorted(names)))
+"""
+
+
+def test_benches_import_without_jax():
+    """``recmv_tpu_torch.bench`` and every ``recmv_tpu_torch.tools`` module
+    import in a subprocess in which ``import jax`` and ``import recmv_tpu``
+    fail."""
+    env = dict(os.environ, PYTHONPATH=os.path.abspath(ROOT))
+    proc = subprocess.run([sys.executable, "-c", _BENCHES], capture_output=True, text=True,
+                          env=env, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    names = {n.rsplit(".", 1)[1] for n in proc.stdout.split()}
+    assert {"bench_quality", "bench_fullstep", "bench_largepose", "bench_animation",
+            "eval_chamfer", "compute_CSI", "fitting_garment_meshes",
+            "quality_vs_records"} <= names, names
 
 
 # ---------------------------------------------------------------------------
