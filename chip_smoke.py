@@ -20,7 +20,7 @@ Phases, one printed line each (or more):
    feature curves: each curve its canonical boundary ring resampled to
    200 points, through ``align_fl`` with t = 0, s = 1 (an exact fit, as
    the initialization would hand it over);
-5. remesh (seg3d + host marching cubes);
+5. remesh (seg3d + the device marching cubes);
 6. three forward steps over batches of 3 frames (mask branch, ray
    seeding, surface solve, IDR colour), with per-phase CUDA-event times
    and the kernels' launch counts, which must rise;
@@ -152,15 +152,33 @@ Phases, one printed line each (or more):
     ``bench_quality.json``; the hot step (``recmv_tpu_torch.bench.main``,
     8,192 rays, 3 timed iterations) and its summary line. It raises on a
     non-finite result, a missing key or a kernel of the benches' path that
-    never launched.
+    never launched;
+19. the remesh's parts and the last tools, with the kernels' launch
+    counts set to 0 before the tools and read after: on phase 18's
+    fine-pyramid net, 3 times, seg3d, the device marching cubes and the
+    path it replaced (the volume to the host and ``marching_cubes_host``)
+    by CUDA events; the device mesh equal to the host mesh up to a vertex
+    permutation (faces equal through the map, vertices within the CPU
+    tests' tolerance) and to the same function on the volume's CPU copy in
+    order; two
+    warm ``marching_cube_update``; on phase 15's scene at the ``higher``
+    pyramid (513³), seg3d and the device marching cubes with the peak
+    device memory of each (for the record: ``higher`` keeps the host
+    path) beside the host path's time; then the six ported tools
+    (``generate_normals``, ``parsing_mask_to_fl``, ``mask2parsing_mask``,
+    ``visualize``, ``visualize_curve``, ``comparison_results``) on phase
+    15's scene and phase 16's exports, each with its seconds and K1
+    launches, and K1 against its plain version on the first normal map's
+    arguments (1080², tile 32, cap 1024). It raises on a disagreeing mesh,
+    a missing output or a kernel of the tools' path that never launched.
 
 A kernel's bound is the larger of the bytes it must move (each input
 read once: the listed candidates, the counts, the upstream gradient;
 each output written once) over 3.35 TB/s and the operations the live
 pairs need over 67 TFLOP/s (H100 SXM float32, published peaks). Then a
 JSON line with each kernel's record (launches from the training run of
-phase 10, K1's with phase 16's added, all three with phases 17's and
-18's added;
+phase 10, K1's with phases 16's and 19's added, all three with phases
+17's and 18's added;
 error, times and bound from phases 8 and 12; no PyTorch call
 computes these functions, so ``library_ms`` is null), the card's name and
 power limit, and last ``{"ok": true, "device": {...}}``. Any failure
@@ -1532,6 +1550,219 @@ def bench_run(dev, work: str) -> dict:
     return launches
 
 
+def mc_tolerance(shape, spacing, v) -> float:
+    """The vertex tolerance of ``tests/test_torch_marching_cubes.py``: two
+    float32 roundings at the grid index's scale (times the spacing) and at
+    the largest coordinate's."""
+    import numpy as np
+
+    return 2 * (max(spacing) * float(np.spacing(np.float32(max(shape))))
+                + float(np.spacing(np.float32(np.abs(v).max()))))
+
+
+def mc_agree(v, f, vh, fh) -> tuple:
+    """The device mesh (v, f) against the host ``marching_cubes_host`` mesh
+    (vh, fh) of the same volume, each host vertex mapped to its nearest
+    device vertex: (the map is one to one, the mapped host faces equal the
+    device faces in order, the largest coordinate difference)."""
+    import numpy as np
+    from scipy.spatial import cKDTree
+
+    _, to_dev = cKDTree(v).query(vh)
+    onto = len(vh) == len(v) and np.array_equal(np.sort(to_dev), np.arange(len(v)))
+    return onto, onto and np.array_equal(to_dev[fh], f), float(np.abs(v[to_dev] - vh).max())
+
+
+def remesh_split_run(dev, bench_work: str, scene: str) -> None:
+    """Phase 19 (a) and (b): the remesh's parts by CUDA events. (a) On the
+    fine pyramid of phase 18's net (the same scene and initialization):
+    for the garment, 3 times, seg3d, the device marching cubes, and the
+    path it replaced (the volume to the host and ``marching_cubes_host``);
+    the device mesh equals the host mesh up to a vertex permutation and the
+    same function run on the volume's CPU copy in order; then two warm
+    ``marching_cube_update`` by host clock. (b) On phase 15's scene at the
+    ``higher`` pyramid (513³): seg3d and the device marching cubes with
+    the peak device memory of each, for the record (``higher`` keeps the
+    host path), beside the host path's time."""
+    import argparse
+
+    import numpy as np
+    import torch
+
+    from recmv_tpu_torch import infer
+    from recmv_tpu_torch.native import marching_cubes_host
+    from recmv_tpu_torch.ops.marching_cubes import marching_cubes
+    from recmv_tpu_torch.ops.seg3d import final_grid_spacing, seg3d_forward
+    from recmv_tpu_torch.tools import bench_fullstep, sync
+
+    card = card_line()
+    t_phase = time.time()
+    _, net, _, _ = bench_fullstep.build_bench_net(
+        bench_fullstep.parse_args(["--scene", osp.join(bench_work, "bench")]), dev)
+    cfg = net.seg3d_cfg
+    spacing, origin = final_grid_spacing(cfg)
+    level = -net.sdf_shrink
+    caps = dict(max_verts=net.cfg.mc_capacity_v, max_faces=net.cfg.mc_capacity_f)
+    query = net._extract_query(net.params["garment_sdfs"][0], 1.0, 0)
+    rows = []
+    with torch.no_grad():
+        for _ in range(3):
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+            ev[0].record()
+            vol = seg3d_forward(query, cfg, device=dev)
+            ev[1].record()
+            v, f = marching_cubes(vol, level, origin, spacing, **caps)
+            ev[2].record()
+            vh, fh = marching_cubes_host(vol.cpu().numpy(), level, origin=np.asarray(origin),
+                                         spacing=np.asarray(spacing), **caps)
+            ev[3].record()
+            torch.cuda.synchronize()
+            rows.append([ev[i].elapsed_time(ev[i + 1]) for i in range(3)])
+        vc, fc = marching_cubes(vol.cpu(), level, origin, spacing, **caps)
+    v, f = v.cpu().numpy(), f.cpu().numpy()
+    tol = mc_tolerance(vol.shape, spacing, v)
+    onto, faces_same, dist = mc_agree(v, f, vh, fh)
+    cpu_order = bool(np.array_equal(fc.numpy(), f))
+    cpu_err = float(np.abs(vc.numpy() - v).max())
+    log(f"[19] fine-pyramid remesh split ({card}): grid {tuple(vol.shape)} "
+        f"({vol.numel()} cells), garment {len(v)} verts {len(f)} faces; ms per run "
+        f"[seg3d, device marching cubes, volume to host + marching_cubes_host]: "
+        f"{json.dumps([[round(x, 3) for x in r] for r in rows])}")
+    log(f"[19] device mesh vs host mesh: vertex map one to one {onto}, largest vertex "
+        f"difference {dist:.3e} (tolerance {tol:.3e}), faces equal through the map "
+        f"{faces_same}; vs the "
+        f"CPU run on the volume's copy: faces and order equal {cpu_order}, largest vertex "
+        f"difference {cpu_err:.3e}")
+    if not (onto and faces_same and dist <= tol and cpu_order and cpu_err <= tol
+            and len(v) > 100):
+        raise AssertionError("the device marching cubes disagrees with the host path or the CPU")
+    del vol, vc, fc
+    walls = []
+    for _ in range(2):
+        t0 = time.time()
+        net.marching_cube_update({"sdfRatio": 1.0, "deformerRatio": 0.5, "renderRatio": 1.0})
+        sync(dev)
+        walls.append(time.time() - t0)
+    log(f"[19] warm marching_cube_update at the fine pyramid (seg3d + device marching cubes + "
+        f"trim), s: {[round(w, 4) for w in walls]}, garment verts {net.mesh.garment_n} ({card})")
+    del net
+    torch.cuda.empty_cache()
+
+    hi, _, _ = infer.load_net(argparse.Namespace(
+        data_root=scene, save_folder="result", conf=None, ckpt=None, quality="higher",
+        device=str(dev)))
+    cfg = hi.seg3d_cfg
+    spacing, origin = final_grid_spacing(cfg)
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+    with torch.no_grad():
+        torch.cuda.reset_peak_memory_stats(dev)
+        base = torch.cuda.memory_allocated(dev)
+        ev[0].record()
+        vol = seg3d_forward(hi._extract_query(hi.params["garment_sdfs"][0], 1.0, 0), cfg,
+                            device=dev)
+        ev[1].record()
+        torch.cuda.synchronize()
+        seg_peak = torch.cuda.max_memory_allocated(dev) - base
+        torch.cuda.reset_peak_memory_stats(dev)
+        held = torch.cuda.memory_allocated(dev)
+        ev[2].record()
+        v, f = marching_cubes(vol, -hi.sdf_shrink, origin, spacing, max_verts=1 << 22,
+                              max_faces=1 << 23)
+        ev[3].record()
+        torch.cuda.synchronize()
+        mc_peak = torch.cuda.max_memory_allocated(dev) - held
+        t0 = time.time()
+        vh, fh = marching_cubes_host(vol.cpu().numpy(), -hi.sdf_shrink,
+                                     origin=np.asarray(origin), spacing=np.asarray(spacing),
+                                     max_verts=1 << 22, max_faces=1 << 23)
+        host_s = time.time() - t0
+    log(f"[19] higher pyramid {tuple(vol.shape)} ({vol.numel()} cells, garment "
+        f"{hi.statics.garment_names[0]}; {card}): seg3d {ev[0].elapsed_time(ev[1]):.3f} ms "
+        f"peak {seg_peak / 2 ** 30:.3f} GiB above {base / 2 ** 30:.3f} GiB held; device "
+        f"marching cubes {ev[2].elapsed_time(ev[3]):.3f} ms peak {mc_peak / 2 ** 30:.3f} GiB "
+        f"above {held / 2 ** 30:.3f} GiB held (the volume "
+        f"{vol.numel() * 4 / 2 ** 30:.3f} GiB); volume to host + marching_cubes_host "
+        f"{host_s * 1e3:.1f} ms; {len(v)} verts {len(f)} faces (host {len(vh)}, {len(fh)})")
+    if len(v) != len(vh) or len(f) != len(fh) or not len(v):
+        raise AssertionError("the 513³ device and host marching cubes differ in their counts "
+                             "or found no surface")
+    log(f"[19] remesh split ran {time.time() - t_phase:.1f} s")
+
+
+def tools_run(dev, scene: str) -> int:
+    """Phase 19 (c): the six ported tools on phase 15's scene and phase 16's
+    exports, each timed, with the kernels' launch counts set to 0 before
+    and read after: ``generate_normals`` (16 frames at 1080², tile 32,
+    cap 1024), ``parsing_mask_to_fl``, ``mask2parsing_mask``,
+    ``visualize`` (the exported meshes of frames 0 and 1), ``visualize_curve``
+    (the canonical tubes and those of frames 0 and 1) and
+    ``comparison_results`` (the exported garments beside the exported
+    bodies at 512², cap 256); then K1 against its plain version on the
+    first normal map's arguments. Raises on a missing output or when K1
+    never launched. Returns K1's launches."""
+    import glob
+
+    import numpy as np
+    import torch
+
+    from recmv_tpu_torch.ops.composite import composite_tiles, composite_tiles_bwd
+    from recmv_tpu_torch.ops.mesh_raster import mesh_tiles
+    from recmv_tpu_torch.tools import (comparison_results, generate_normals, mask2parsing_mask,
+                                       parsing_mask_to_fl, sync, visualize, visualize_curve)
+
+    card = card_line()
+    t_phase = time.time()
+    dev_arg = ["--device", str(dev)]
+    exports = osp.join(scene, "result", "infer")
+    runs = [
+        ("generate_normals", lambda: generate_normals.main(["--data-root", scene] + dev_arg)),
+        ("parsing_mask_to_fl", lambda: parsing_mask_to_fl.main(["--data-root", scene] + dev_arg)),
+        ("mask2parsing_mask", lambda: mask2parsing_mask.main(
+            ["--data-root", scene, "--garment-type", "synthetic-tube"])),
+        ("visualize", lambda: visualize.main(
+            ["--data-root", scene, "--mesh-dir", osp.join(exports, "meshs"), "--out",
+             osp.join(scene, "vis")] + dev_arg)),
+        ("visualize_curve", lambda: visualize_curve.main(
+            ["--data-root", scene, "--frames"] + [str(f) for f in INFER_FRAMES] + dev_arg)),
+        ("comparison_results", lambda: comparison_results.main(
+            ["--out", osp.join(scene, "cmp"), f"ours={osp.join(exports, 'meshs')}",
+             f"body={osp.join(exports, 'smpl_meshs')}"] + dev_arg)),
+    ]
+    calls, results, secs = [], {}, {}
+    mesh_tiles.launches = composite_tiles.launches = composite_tiles_bwd.launches = 0
+    with rasterizer_kernels(composite_tiles, recording_calls(mesh_tiles, calls)):
+        for name, run in runs:
+            n0, t0 = mesh_tiles.launches, time.time()
+            results[name] = run()
+            sync(dev)
+            secs[name] = (round(time.time() - t0, 3), mesh_tiles.launches - n0)
+    log(f"[19] tools ({card}): seconds and K1 launches {json.dumps(secs)}")
+    normals = sorted(glob.glob(osp.join(scene, "normals", "*.png")))
+    fl = results["parsing_mask_to_fl"]
+    parsing = results["mask2parsing_mask"]
+    tubes = results["visualize_curve"]
+    strips = results["comparison_results"]
+    with open(osp.join(scene, "cmp", "methods.txt")) as f:
+        methods = f.read().split()
+    log(f"[19] outputs: {len(normals)} normal maps, {fl} mask2fl annotations, {len(parsing)} "
+        f"parsing masks, {results['visualize']} overlays, {len(tubes)} curve tubes, {strips} "
+        f"comparison strips of {methods}")
+    n_frames = len(np.load(osp.join(scene, "smpl_rec.npz"))["poses"])
+    if (len(normals) != n_frames or fl < 1 or len(parsing) != n_frames
+            or results["visualize"] != len(INFER_FRAMES) or len(tubes) < 3 or strips < 1
+            or methods != ["ours", "body"]):
+        raise AssertionError(f"a tool's output is missing: {secs}")
+    launches = mesh_tiles.launches
+    if launches < 1 or composite_tiles.launches or composite_tiles_bwd.launches:
+        raise AssertionError(f"the tools' launches are wrong: K1 {launches}, composite "
+                             f"{composite_tiles.launches}/{composite_tiles_bwd.launches}")
+    compare_mesh_tiles("19 generate_normals 1080² tile 32 cap 1024", calls[0], min_cover=0.01)
+    del calls
+    torch.cuda.empty_cache()
+    log(f"[19] tools ran {time.time() - t_phase:.1f} s")
+    return launches
+
+
 def turntable_cap_probe(net) -> None:
     """The turntable's 8 views of the garment of ``net`` (its current MC
     mesh) at the turntable's cap of 256 and at ``CAP_PROBE``: the share
@@ -1728,8 +1959,15 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # phase 18: the benches; their launches count
-    for n, c in bench_run(dev, tempfile.mkdtemp(prefix="recmv_chip_smoke_bench_")).items():
+    bench_work = tempfile.mkdtemp(prefix="recmv_chip_smoke_bench_")
+    for n, c in bench_run(dev, bench_work).items():
         launches[n] += c
+    torch.cuda.empty_cache()
+
+    # phase 19: the remesh's parts, the device marching cubes against the
+    # host path, the 513³ volume; the tools, whose K1 launches count
+    remesh_split_run(dev, bench_work, scene)
+    launches["mesh_tiles"] += tools_run(dev, scene)
 
     sources = {"mesh_tiles": ("recmv_tpu_torch/csrc/mesh_raster.cu",
                               "recmv_tpu/ops/pallas_raster.py:31"),

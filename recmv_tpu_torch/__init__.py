@@ -5,9 +5,10 @@ layout (``config/ ops/ models/ core/ data/``) and its function names, so
 each module's counterpart is found under the same path. It imports torch,
 numpy and scipy, never JAX.
 
-What is ported so far is the whole training step: remesh (seg3d + host
-marching cubes), the ① curve branch with its visibility gates (body and
-garment z-buffers through the mesh rasterizer), the ② mask branch's
+The port does all that the JAX package does: the whole training step
+(remesh: seg3d and the marching cubes on the device), the ① curve
+branch with its visibility gates (body and garment z-buffers through the
+mesh rasterizer), the ② mask branch's
 point-splat render and IoU with its backward, ray seeding through the mesh
 rasterizer, the surface solve, the whole ③ ``main_loss`` through the
 implicit surface adjoint, and the optimizer updates; the one-time scene
@@ -16,8 +17,9 @@ the IGR fits of the SDFs), checkpoints and the training CLI
 (``python -m recmv_tpu_torch.train``); inference and registration; the
 body priors (the TCMR joints, the beta pre-fit, licensed SMPL assets),
 the large-pose stage (``python -m recmv_tpu_torch.train_large_pose``)
-and the debug renders; and the benches and the quality evaluation
-(``recmv_tpu_torch.tools``, ``python -m recmv_tpu_torch.bench``). The
+and the debug renders; the benches and the quality evaluation
+(``recmv_tpu_torch.tools``, ``python -m recmv_tpu_torch.bench``); and the
+scene-preparation and visualization tools (``recmv_tpu_torch.tools``). The
 three TPU kernels
 on that path (the mesh z-buffer, the point composite and its backward) are
 hand-written CUDA C++ for Hopper (``csrc/``), built with ``nvcc`` at first

@@ -2,11 +2,11 @@
 ``recmv_tpu/core/network.py``).
 
 Ported: ``TrainConfig``, ``MeshState`` and, on ``GarmentOptimNetwork``,
-the remesh (``marching_cube_update``: seg3d pyramid + host marching cubes
-+ the capacity trim), the feature curves (``align_fl``), the ① curve
-branch (``fl_branch_loss``: the visibility gates, the body and garment
-z-buffers through K1, the 2D chamfer, the curve regularizers and the SDF
-anchoring), the ② mask branch (``pc_branch_loss``), ray seeding
+the remesh (``marching_cube_update``: seg3d pyramid + marching cubes on
+the device + the capacity trim), the feature curves (``align_fl``), the
+① curve branch (``fl_branch_loss``: the visibility gates, the body and
+garment z-buffers through K1, the 2D chamfer, the curve regularizers and
+the SDF anchoring), the ② mask branch (``pc_branch_loss``), ray seeding
 (``find_and_sample_rays``), the surface solve (``solve_surface_points``),
 ③ ``main_loss`` with the implicit surface adjoint and the curve-aware
 term, the optimizers (AdamW over the curves; Adam over the global
@@ -53,6 +53,7 @@ from ..models.sdf import sdf_apply, sdf_gradient, sdf_value, sdf_value_and_gradi
 from ..models.skinner import posed_skeleton, skinner_apply
 from ..models.translator import translator_apply
 from ..native import marching_cubes_host
+from ..ops.marching_cubes import marching_cubes
 from ..ops.math3d import dct_null_space, gm_robust_error
 from ..ops.rasterizer import composite_points, find_surface_points, rasterize_mesh, screen_with_cam_z
 from ..ops.seg3d import Seg3dConfig, final_grid_spacing, seg3d_forward
@@ -268,14 +269,22 @@ class GarmentOptimNetwork:
                                          torch.maximum(pts - bmax, bmin - pts).amax(-1))
 
     def discretize_sdf(self, ratio, balance_value: float = 0.0, include_body: bool = True,
-                       max_verts: int | None = None, max_faces: int | None = None):
+                       max_verts: int | None = None, max_faces: int | None = None,
+                       host: bool = False):
         """Seg3d pyramid over each SDF (each garment's within its clip box,
-        ``_extract_query``) + host marching cubes → per net (verts (V, 3)
-        f32, faces (F, 3) int64) numpy meshes. The marching cubes' buffers
-        are ``mc_capacity_v``/``_f`` unless given."""
+        ``_extract_query``), then marching cubes → per net (verts (V, 3)
+        float32, faces (F, 3) int64). By default both run on the network's
+        device and the meshes stay there, in the JAX ``discretize_sdf``'s
+        vertex order (``ops/marching_cubes``). ``host`` is the JAX
+        ``discretize_sdf_host``: the volume goes to the host and through
+        ``marching_cubes_host``, and the meshes are numpy arrays in that
+        path's order. The buffers are ``mc_capacity_v``/``_f`` unless
+        given; a mesh that outgrows them raises."""
         cfg = self.seg3d_cfg
         r = _ratio_dict(ratio)["sdfRatio"]
         spacing, origin = final_grid_spacing(cfg)
+        max_verts = max_verts or self.cfg.mc_capacity_v
+        max_faces = max_faces or self.cfg.mc_capacity_f
         nets = [(n, self.params["garment_sdfs"][i], i) for i, n in
                 enumerate(self.statics.garment_names)]
         if include_body:
@@ -285,10 +294,15 @@ class GarmentOptimNetwork:
             t0 = time.time()
             with torch.no_grad():
                 vol = seg3d_forward(self._extract_query(net, r, gi), cfg, device=self.device)
-            v, f = marching_cubes_host(vol.cpu().numpy(), balance_value,
-                                       origin=np.asarray(origin), spacing=np.asarray(spacing),
-                                       max_verts=max_verts or self.cfg.mc_capacity_v,
-                                       max_faces=max_faces or self.cfg.mc_capacity_f)
+                if host:
+                    v, f = marching_cubes_host(vol.cpu().numpy(), balance_value,
+                                               origin=np.asarray(origin),
+                                               spacing=np.asarray(spacing),
+                                               max_verts=max_verts, max_faces=max_faces)
+                else:
+                    v, f = marching_cubes(vol, balance_value, origin, spacing,
+                                          max_verts=max_verts, max_faces=max_faces)
+            del vol
             sys.stderr.write(f"[net] extract {name}: {time.time() - t0:.1f}s nv={len(v)}\n")
             out.append((v, f))
         return out
@@ -309,15 +323,15 @@ class GarmentOptimNetwork:
         vertices are zeros and padding faces (0, 0, 0), which the
         rasterizer skips as degenerate. The body is extracted on the first
         call. ``higher`` is inference's ``--quality higher`` (the JAX
-        ``marching_cube_update_host``): the body again too, and the
-        marching cubes' buffers at 2^22 vertices and 2^23 faces in place
-        of ``mc_capacity_v``/``_f``. The vertex SGD and, where curves
-        exist, the curve AdamW start afresh."""
+        ``marching_cube_update_host``): the body again too, the host
+        marching cubes (that path's vertex order) and its buffers at 2^22
+        vertices and 2^23 faces in place of ``mc_capacity_v``/``_f``. The
+        vertex SGD and, where curves exist, the curve AdamW start afresh."""
         max_verts, max_faces = ((1 << 22, 1 << 23) if higher else
                                 (self.cfg.mc_capacity_v, self.cfg.mc_capacity_f))
         fresh_body = higher or self.mesh is None
         meshes = self.discretize_sdf(ratio, -self.sdf_shrink, include_body=fresh_body,
-                                     max_verts=max_verts, max_faces=max_faces)
+                                     max_verts=max_verts, max_faces=max_faces, host=higher)
         if fresh_body:
             body, garments = meshes[0], meshes[1:]
             assert len(body[0]) > 0, "tmp sdf vanished"

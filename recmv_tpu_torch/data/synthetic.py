@@ -6,10 +6,9 @@ smpl_rec.npz, camera.npz).
 
 The geometry (garment SDFs, boundary rings, camera) is copied from the
 JAX module. The frames are rendered through the port: skinning in torch,
-the mesh rasterizer (kernel K1 on a CUDA device), and the host marching
-cubes in place of ``marching_cubes_np`` (same tables and vertex
-interpolation; vertex order differs, which no output depends on). PNGs are
-written with ``data/png.py``.
+the mesh rasterizer (kernel K1 on a CUDA device), and the GT meshes
+through the port's ``marching_cubes_np``, in the JAX package's vertex
+order. PNGs are written with ``data/png.py``.
 """
 
 from __future__ import annotations
@@ -26,7 +25,7 @@ from .. import resolve_device
 from ..models import camera as cam_mod
 from ..models.skinner import SkinnerParams, initial_lbs_skinner, skinner_apply
 from ..models.smpl import synthetic_body_model, synthetic_body_sdf
-from ..native import marching_cubes_host
+from ..ops.marching_cubes import marching_cubes_np
 from ..ops.math3d import compute_fnorms
 from ..ops.rasterizer import rasterize_mesh, screen_with_cam_z
 from .png import imwrite
@@ -149,7 +148,7 @@ def garment_mesh(res: int = 97, offset: float = GARMENT_OFFSET, band=TORSO_Y):
     pts = np.stack([x, y, z], -1).reshape(-1, 3)
     vol = garment_sdf(pts, offset, band).reshape(res, res, res)
     step = lin[1] - lin[0]
-    return marching_cubes_host(vol, 0.0, (-0.9, -0.9, -0.9), (step,) * 3)
+    return marching_cubes_np(vol, 0.0, (-0.9, -0.9, -0.9), (step,) * 3)
 
 
 def boundary_ring(y_level: float, n: int = 100,

@@ -82,6 +82,15 @@ def view_rays(cam: Camera, pix: torch.Tensor) -> torch.Tensor:
     return rays @ cam.R.T
 
 
+def project(cam: Camera, pts: torch.Tensor) -> torch.Tensor:
+    """World → pixel coordinates (x, y): u = px − fx·X/Z (pytorch3d's axis
+    flip)."""
+    pc = world_to_cam(cam, pts)
+    x = cam.principal[0] - pc[..., 0] * cam.focal[0] / pc[..., 2]
+    y = cam.principal[1] - pc[..., 1] * cam.focal[1] / pc[..., 2]
+    return torch.stack([x, y], dim=-1)
+
+
 def cam_pos(cam: Camera) -> torch.Tensor:
     """Camera centre in world coordinates: −R @ T."""
     return -(cam.R @ cam.trans)

@@ -103,3 +103,13 @@ def seg3d_forward(query_fn, cfg: Seg3dConfig, device=None, chunk: int = 1 << 18)
             evaluated = evaluated | neigh
             newly = neigh
     return occ
+
+
+def seg3d_dense(query_fn, cfg: Seg3dConfig, device=None, chunk: int = 1 << 18) -> torch.Tensor:
+    """The finest grid evaluated densely, in chunks of ``chunk`` points:
+    the reference ``seg3d_forward`` must equal on every sign-relevant
+    voxel (the lossless property). Nothing on the training path calls it."""
+    W, H, D = cfg.resolutions[-1]
+    idx = torch.arange(W * H * D, device=device)
+    stride = torch.ones(3, dtype=torch.int64, device=device)
+    return _query_flat(query_fn, cfg, idx, (D, H, W), stride, chunk).reshape(D, H, W)

@@ -1,10 +1,14 @@
-"""The port's measurement and evaluation programs (counterparts of the
-repo's ``tools/bench_*.py``, ``eval_chamfer.py``, ``compute_CSI.py`` and
-``fitting_garment_meshes.py``), each run as ``python -m
+"""The port's measurement, evaluation, scene-preparation and visualization
+programs (counterparts of the repo's ``tools/bench_*.py``,
+``eval_chamfer.py``, ``compute_CSI.py``, ``fitting_garment_meshes.py``,
+``generate_normals.py``, ``parsing_mask_to_fl.py``, ``visualize.py``,
+``visualize_curve.py``, ``comparison_results.py`` and
+``preprocess/mask2parsing_mask.py``), each run as ``python -m
 recmv_tpu_torch.tools.<name>`` and callable as ``main(argv)``.
 
 They run on the CUDA card (``--device cuda``, the default) and raise
-without one; ``--device cpu`` runs them on the CPU (the tests). Records
+without one; ``--device cpu`` runs them on the CPU (the tests);
+``mask2parsing_mask`` runs on the host. Records
 and cached scenes go under ``recmv_tpu_torch/_bench/`` (not committed),
 never the repo root, whose ``bench_*.json`` are the JAX package's TPU
 records; each record's ``device`` names the card and its power limit.

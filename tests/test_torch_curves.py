@@ -49,7 +49,11 @@ Tolerances (float32) and why:
   norm; here the entries are chosen by the port's own gradient); the
   curves after AdamW likewise: entries whose JAX step is at least lr/2
   within 2e-2 of lr;
-- (f): exact (the same operations on the same inputs).
+- (f): exact (the same operations on the same inputs);
+- (g) with the port's own remesh: faces exact and vertices in order
+  within ``MC_ATOL`` = 1e-5, as ``test_torch_init`` holds the remesh: the
+  two seg3d volumes differ in the last bits of the SDF's evaluation,
+  which moves a vertex along its edge (measured 3.8e-6).
 """
 
 import copy
@@ -68,6 +72,7 @@ from test_torch_train import (RATIO, _assert_info_close, _build_pair, _jax_leaf,
                               _np_tree, _seed_uniforms, _t)
 
 FIDS = [1, 4]
+MC_ATOL = 1e-5
 KEY = 3
 N_FRAMES = 6
 IMG = 48
@@ -693,18 +698,35 @@ def test_remesh_resets_the_curve_optimizer(pair):
     assert all(a is b for a, b in zip(held, net.curve_leaves())) and len(held) == 2
 
 
-def test_step_remesh_step_matches_jax(pair):
+@pytest.mark.parametrize("remesh", ["jax_mesh", "own_mesh"])
+def test_step_remesh_step_matches_jax(pair, remesh):
     """(g) From one state (the JAX package's parameters, scene, curves and
     mesh, fresh optimizers) on the tube scene outside the fine stage: a
     training step, a forced remesh (the port then takes the JAX values of
-    the parameters, scene and curves in place, and the JAX mesh, so that
-    both step from the same point) and a second step, with the JAX draws
-    replayed, against the JAX package's three calls. The curves after
-    each step as ``test_train_step_with_curves_matches_jax`` holds them:
-    entries whose JAX step is at least lr/2 (and whose gradient is above
-    1e-3 of the leaf's largest) within 2e-2 of lr. With the curve AdamW's
-    moments carried over the remesh, the second step's update of an entry
-    whose gradient changed differs by more than that."""
+    the parameters, scene and curves in place, so that both step from the
+    same point) and a second step, with the JAX draws replayed, against the
+    JAX package's three calls. With ``jax_mesh`` the port takes the JAX
+    mesh after its remesh; with ``own_mesh`` it steps on its own: its mesh
+    must have the JAX mesh's vertices in order (the draws of ③ pick
+    vertices by index) and its faces exactly. The curves after each step as
+    ``test_train_step_with_curves_matches_jax`` holds them: entries whose
+    JAX step is at least lr/2 (and whose gradient is above 1e-3 of the
+    leaf's largest) within 2e-2 of lr. With the curve AdamW's moments
+    carried over the remesh, the second step's update of an entry whose
+    gradient changed differs by more than that."""
+    net_j = pair["net_j"]
+    kept = (dict(net_j.params), net_j._scene_dev, net_j.mesh, net_j.opt_times,
+            net_j._remeshed_at)
+    try:
+        _step_remesh_step(pair, remesh)
+    finally:
+        # the next case starts from the same JAX state (its arrays are immutable)
+        net_j.params.clear()
+        net_j.params.update(kept[0])
+        net_j._scene_dev, net_j.mesh, net_j.opt_times, net_j._remeshed_at = kept[1:]
+
+
+def _step_remesh_step(pair, remesh):
     net_j, net_t, batch = pair["net_j"], pair["net_t"], pair["batch"]
     for net in (net_j, net_t):
         net.dataset.garment_type, net.isfine = "synthetic-tube", False
@@ -748,8 +770,20 @@ def test_step_remesh_step_matches_jax(pair):
             net_j.marching_cube_update(RATIO)
             net_t.marching_cube_update(RATIO)
             assert len(net_t.curve_opt.state) == 0
-            bridge.load_mesh(net_t, net_j.mesh.garment_vs, net_j.mesh.garment_fs,
-                             net_j.mesh.garment_n, net_j.mesh.garment_fn)
+            if remesh == "jax_mesh":
+                bridge.load_mesh(net_t, net_j.mesh.garment_vs, net_j.mesh.garment_fs,
+                                 net_j.mesh.garment_n, net_j.mesh.garment_fn)
+            else:
+                assert net_t.mesh.garment_n == net_j.mesh.garment_n
+                assert min(net_j.mesh.garment_n) > 20
+                assert net_t.mesh.garment_fn == net_j.mesh.garment_fn
+                for v, f, vj, fj, n, nf in zip(net_t.mesh.garment_vs, net_t.mesh.garment_fs,
+                                               net_j.mesh.garment_vs, net_j.mesh.garment_fs,
+                                               net_j.mesh.garment_n, net_j.mesh.garment_fn):
+                    assert v.shape == np.asarray(vj).shape and f.shape == np.asarray(fj).shape
+                    np.testing.assert_array_equal(f[:nf].numpy(), np.asarray(fj)[:nf])
+                    np.testing.assert_allclose(v[:n].detach().numpy(), np.asarray(vj)[:n],
+                                               atol=MC_ATOL, rtol=0)
         c0 = {k: np.asarray(net_j.params["curves"][k]) for k in ("scale", "nx_scale")}
         key = jax.random.PRNGKey(KEY + 2 + step)
         uniforms, key_m = _seed_uniforms(key, 1, len(FIDS) * (IMG // s) ** 2)

@@ -153,6 +153,30 @@ def test_mesh_tiles_kernel_on_body_zbuffer(cuda, monkeypatch):
 
 
 @pytest.mark.gpu
+def test_marching_cubes_on_the_card_matches_the_cpu(cuda):
+    """The device marching cubes (plain PyTorch ops, no kernel of its own)
+    on the card: a seeded noisy sphere at 97 x 113 x 129 gives the CPU
+    run's faces and vertex order exactly, the vertices within two float32
+    roundings (the card's compiler may contract a product and a sum)."""
+    from recmv_tpu_torch.ops.marching_cubes import marching_cubes
+
+    rng = np.random.RandomState(3)
+    axes = [np.linspace(-1.0, 1.0, n, dtype=np.float32) for n in (97, 113, 129)]
+    z, y, x = np.meshgrid(*axes, indexing="ij")
+    vol = (np.sqrt(x * x + y * y + z * z) - 0.6
+           + 0.05 * rng.randn(*x.shape)).astype(np.float32)
+    spacing = (2 / 128, 2 / 112, 2 / 96)
+    v, f = marching_cubes(torch.as_tensor(vol), 0.01, (-1.0,) * 3, spacing, 1 << 20, 1 << 21)
+    vc, fc = marching_cubes(torch.as_tensor(vol, device=cuda), 0.01, (-1.0,) * 3, spacing,
+                            1 << 20, 1 << 21)
+    assert len(v) > 50000
+    assert torch.equal(fc.cpu(), f)
+    tol = 2 * (max(spacing) * float(np.spacing(np.float32(129)))
+               + float(np.spacing(np.float32(v.abs().max().item()))))
+    assert (vc.cpu() - v).abs().max().item() <= tol
+
+
+@pytest.mark.gpu
 def test_mesh_tiles_kernel_on_visibility_scan(cuda, monkeypatch):
     """The registration's visibility scan: a seeded closed mesh (an MC
     sphere with noise, ~100k faces, so tiles exceed the cap) seen from the
