@@ -3,9 +3,9 @@
     python3 chip_smoke.py
 
 Phases, one printed line each (or more):
-1. build the CUDA kernels (nvcc, sm_90a) and the host marching cubes (g++)
-   from the sources in the checkout, and print ptxas's registers, shared
-   memory and spills for each kernel;
+1. build the CUDA kernels (nvcc, sm_90a), the host marching cubes and the
+   host image decoder (g++) from the sources in the checkout, and print
+   ptxas's registers, shared memory and spills for each kernel;
 2. each kernel against its plain PyTorch version on the card, at the
    main path's shapes (1080², tile 32, cap 512 for the mesh z-buffer,
    which must give the same bits; cap 768 and one channel for the point
@@ -118,8 +118,8 @@ Phases, one printed line each (or more):
     the kernels' launch counts set to 0 before and read after: a
     synthetic-tube scene of 16 frames at 1080² made a large-pose scene
     (feature lines on frames 0-7 only, a depth drift after them, a TCMR
-    pickle written without joblib with the synthetic body's 2D joints at
-    betas (1.0, −0.5)); stage 1, ``train.main`` in process with
+    pickle written gzip-compressed without joblib with the synthetic body's
+    2D joints at betas (1.0, −0.5)); stage 1, ``train.main`` in process with
     ``smoke.conf`` less its caps and ``data_type = large_pose`` and
     ``--save-debug``: the beta pre-fit on the cold skinner cache (its
     seconds, betas and mean reprojection error before and after), the
@@ -170,7 +170,24 @@ Phases, one printed line each (or more):
     15's scene and phase 16's exports, each with its seconds and K1
     launches, and K1 against its plain version on the first normal map's
     arguments (1080², tile 32, cap 1024). It raises on a disagreeing mesh,
-    a missing output or a kernel of the tools' path that never launched.
+    a missing output or a kernel of the tools' path that never launched;
+20. the scene inputs that OpenCV and joblib read for the JAX package, with
+    the kernels' launch counts set to 0 before the training and read
+    after: every committed fixture of ``tests/torch_fixtures`` (JPEGs in
+    each mode, PNGs in each colour type, depth, interlace and filter, EXIF
+    orientations, five compressed joblib dumps) read by the port and held
+    against the ``cv2.imread`` arrays and dump contents stored beside
+    them; ms per read, by host clock over 10 reads, of the 1080² JPEG
+    fixture, its PIL-written PNG twin and the same pixels written by
+    ``png.imwrite``, with the host CPU and the card line; a copy of phase
+    15's scene with that JPEG (frame 0 of the scene, rendered on the CPU,
+    quality 95, 4:2:0) in place of ``imgs/0.png`` and a gzip-compressed
+    TCMR dump, loaded by ``SceneDataset`` (frame 0 from the ``.jpg`` path,
+    its mean absolute difference from the PNG frame) and trained by
+    ``train.main`` for 2 steps resumed from phase 15's ``latest.ckpt``.
+    It raises on a fixture that differs, a frame more than 2 levels from
+    the PNG on average, or a step that is not finite or does not launch
+    K1 three times and K2 and K3 once each.
 
 A kernel's bound is the larger of the bytes it must move (each input
 read once: the listed candidates, the counts, the upstream gradient;
@@ -178,7 +195,7 @@ each output written once) over 3.35 TB/s and the operations the live
 pairs need over 67 TFLOP/s (H100 SXM float32, published peaks). Then a
 JSON line with each kernel's record (launches from the training run of
 phase 10, K1's with phases 16's and 19's added, all three with phases
-17's and 18's added;
+17's, 18's and 20's added;
 error, times and bound from phases 8 and 12; no PyTorch call
 computes these functions, so ``library_ms`` is null), the card's name and
 power limit, and last ``{"ok": true, "device": {...}}``. Any failure
@@ -188,10 +205,12 @@ any work.
 from __future__ import annotations
 
 import contextlib
+import gzip
 import json
 import math
 import os
 import os.path as osp
+import pickle
 import sys
 import tempfile
 import time
@@ -216,6 +235,8 @@ LP_TARGET_BETAS = (1.0, -0.5)          # the betas of the scene's TCMR joints
 FS_STEPS = 2                           # phase 18: bench_fullstep's timed steps
 QUALITY_ARGS = ["--image", "128", "--frames", "4", "--steps", "12", "--init-epochs", "40"]
 HOT_ITERS = 3                          # phase 18: the hot step's timed iterations
+DECODE_REPS, INPUT_STEPS = 10, 2       # phase 20: timed reads per file, steps on the copy
+FIXTURES = osp.join(ROOT, "tests", "torch_fixtures")
 SKINNER_RES = (129, 225, 65)
 
 
@@ -1267,8 +1288,8 @@ def large_pose_run(dev, work: str) -> tuple:
     stage. A synthetic-tube scene of ``CLI_FRAMES`` frames at ``IMAGE``²
     made a large-pose scene (``make_large_pose_scene``: feature lines on
     frames < ``LP_ANNOTATED`` only, a depth drift after them, a TCMR
-    pickle written without joblib with 2D joints of the synthetic body at
-    ``LP_TARGET_BETAS``). Stage 1: ``train.main`` with ``smoke.conf`` less
+    pickle written gzip-compressed without joblib with 2D joints of the
+    synthetic body at ``LP_TARGET_BETAS``). Stage 1: ``train.main`` with ``smoke.conf`` less
     its caps and ``data_type = large_pose``, and ``--save-debug`` (the
     A-pose range; the beta pre-fit on the cold skinner cache, the
     initialization, ``CLI_STEPS`` steps, the debug renders after the
@@ -1309,9 +1330,14 @@ def large_pose_run(dev, work: str) -> tuple:
     target = np.zeros(10, np.float32)
     target[:2] = LP_TARGET_BETAS
     make_large_pose_scene(scene, LP_ANNOTATED, target, device=dev)
+    tcmr = osp.join(scene, "synthetic-tube_tcmr_output.pkl")
+    with open(tcmr, "rb") as f:
+        record = pickle.load(f)
+    with gzip.open(tcmr, "wb") as f:  # a compressed dump, as joblib.load reads it
+        pickle.dump(record, f)
     log(f"[17] generated the large-pose tube: {CLI_FRAMES} frames at {IMAGE}², feature lines "
-        f"on frames 0-{LP_ANNOTATED - 1}, TCMR joints at betas {target[:2].tolist()}, in "
-        f"{time.time() - t0:.1f} s")
+        f"on frames 0-{LP_ANNOTATED - 1}, TCMR joints at betas {target[:2].tolist()} "
+        f"(gzip-compressed), in {time.time() - t0:.1f} s")
     conf = smoke_conf_without_caps(osp.join(work, "large_pose.conf"), "large_pose")
     save = osp.join(scene, "result")
     fits, renders, k1_calls, steps, store = [], [], [], [], {}
@@ -1763,6 +1789,192 @@ def tools_run(dev, scene: str) -> int:
     return launches
 
 
+def host_cpu() -> str:
+    """The host CPU's model name (``/proc/cpuinfo``, where it gives one),
+    architecture and core count."""
+    import platform
+
+    name = "CPU"
+    with contextlib.suppress(OSError):
+        with open("/proc/cpuinfo") as f:
+            name = next((ln.split(":", 1)[1].strip() for ln in f
+                         if ln.startswith("model name")), name)
+    return f"{name} ({platform.machine()}), {os.cpu_count()} cores"
+
+
+def fixtures_check() -> None:
+    """Phase 20 (a): every committed fixture of ``tests/torch_fixtures``
+    read by the port, held against what ``cv2.imread`` and ``joblib.load``
+    gave where they were written (``expected.npz``: the arrays, or the
+    SHA-256 of the 1080² ones). Raises on any difference."""
+    import hashlib
+
+    import numpy as np
+
+    from recmv_tpu_torch.data.image import imread
+    from recmv_tpu_torch.utils.pickle_compat import load_joblib
+
+    names = sorted(os.listdir(FIXTURES))
+    images = [n for n in names if n.endswith((".jpg", ".png"))]
+    dumps = [n for n in names if n.startswith("tcmr_")]
+    with np.load(osp.join(FIXTURES, "expected.npz"), allow_pickle=True) as npz:
+        want = {k: npz[k] for k in npz.files}
+    bad = []
+    for n in images:
+        got = imread(osp.join(FIXTURES, n))
+        if f"img/{n}" in want:
+            same = np.array_equal(got, want[f"img/{n}"])
+        else:
+            same = (tuple(want[f"shape/{n}"]) == got.shape and hashlib.sha256(
+                got.tobytes()).digest() == want[f"sha256/{n}"].tobytes())
+        if not same:
+            bad.append(n)
+    for n in dumps:
+        got = load_joblib(osp.join(FIXTURES, n))
+        same = all(np.array_equal(v, want[f"tcmr/1/{k}"]) and v.dtype == want[f"tcmr/1/{k}"].dtype
+                   for k, v in got[1].items())
+        same &= all(np.array_equal(got[k], want[f"tcmr/{k}"]) for k in ("f_order", "big_endian"))
+        same &= got["objects"].tolist() == want["tcmr/objects"].tolist()
+        if not same:
+            bad.append(n)
+    log(f"[20] fixtures: {len(images)} images and {len(dumps)} joblib dumps read, "
+        f"{len(images) + len(dumps) - len(bad)} equal to cv2.imread's and joblib.load's; "
+        f"differing: {bad}")
+    if bad or len(images) < 40 or len(dumps) != 5:
+        raise AssertionError(f"fixtures differ from OpenCV's or joblib's reading: {bad}")
+
+
+def decode_times(work: str) -> dict:
+    """Phase 20 (b): ms per read (host clock, ``DECODE_REPS`` reads after
+    one untimed) of the 1080² JPEG fixture, its PIL-written PNG twin (130
+    Paeth rows among Up, Sub and unfiltered ones) and the same pixels
+    written by ``png.imwrite`` (filter 0)."""
+    from recmv_tpu_torch.data import png
+    from recmv_tpu_torch.data.image import imread
+
+    plain = osp.join(work, "frame_1080_imwrite.png")
+    png.imwrite(plain, imread(osp.join(FIXTURES, "frame_1080.png")))
+    out = {}
+    for path in (osp.join(FIXTURES, "frame_1080.jpg"), osp.join(FIXTURES, "frame_1080.png"),
+                 plain):
+        imread(path)
+        t0 = time.perf_counter()
+        for _ in range(DECODE_REPS):
+            imread(path)
+        out[osp.basename(path)] = round(1e3 * (time.perf_counter() - t0) / DECODE_REPS, 3)
+    log(f"[20] decode ms per frame ({host_cpu()}; {card_line()}): {json.dumps(out)}")
+    return out
+
+
+def scene_inputs_run(dev, scene: str, work: str) -> dict:
+    """Phase 20: the scene inputs that OpenCV and joblib read for the JAX
+    package. (a) ``fixtures_check``; (b) ``decode_times``; (c) a copy of
+    phase 15's scene (frames, masks, normals, parsing, feature lines, SMPL
+    and camera files, the skinner cache) with the committed 1080² JPEG,
+    frame 0 of the same scene rendered on the CPU and encoded at quality 95,
+    4:2:0, in place of ``imgs/0.png``, and a gzip-compressed TCMR dump (a
+    plain pickle, written with the standard library) of the synthetic
+    body's joints; (d) the copy through ``SceneDataset``: frame 0 from the
+    ``.jpg`` path, its mean absolute difference from phase 15's PNG frame,
+    the dump's joints in the batch; (e) ``train.main`` on the copy for
+    ``INPUT_STEPS`` steps resumed from phase 15's ``latest.ckpt``, the
+    kernels' launch counts set to 0 before and read after, each step's
+    time and launches. Raises on a mismatch, a frame farther than 2 levels
+    from the PNG on average, a step that is not finite or does not launch
+    K1 three times and K2 and K3 once each. Returns the launch counts."""
+    import glob
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from recmv_tpu_torch import train as cli
+    from recmv_tpu_torch.core.network import GarmentOptimNetwork
+    from recmv_tpu_torch.data.dataset import SceneDataset
+    from recmv_tpu_torch.data.image import imread
+    from recmv_tpu_torch.data.synthetic import tcmr_record
+    from recmv_tpu_torch.ops.composite import composite_tiles, composite_tiles_bwd
+    from recmv_tpu_torch.ops.mesh_raster import mesh_tiles
+
+    card = card_line()
+    t_phase = time.time()
+    fixtures_check()
+    decode_times(work)
+
+    copy = osp.join(work, "scene")
+    os.makedirs(osp.join(copy, "result"))
+    for n in os.listdir(scene):
+        src = osp.join(scene, n)
+        if osp.isfile(src):
+            shutil.copy(src, copy)
+        elif n in ("imgs", "masks", "normals", "parsing_SCH_ATR", "featurelines"):
+            shutil.copytree(src, osp.join(copy, n))
+    for src in glob.glob(osp.join(scene, "result", "initial_skinner_*.npz")):
+        shutil.copy(src, osp.join(copy, "result"))
+    os.remove(osp.join(copy, "imgs", "0.png"))
+    shutil.copy(osp.join(FIXTURES, "frame_1080.jpg"), osp.join(copy, "imgs", "0.jpg"))
+    tcmr = osp.join(copy, "synthetic-tube_tcmr_output.pkl")
+    with gzip.open(tcmr, "wb") as f:
+        pickle.dump(tcmr_record(copy, np.zeros(10, np.float32), device=dev), f)
+
+    ds = SceneDataset(copy, garment_type="synthetic-tube")
+    batch = ds.get_batch([0])
+    jpeg = imread(ds.img_ns[0])
+    mad = float(np.abs(jpeg.astype(np.float64) - imread(osp.join(scene, "imgs", "0.png"))).mean())
+    log(f"[20] SceneDataset on the copy: frame 0 from {osp.basename(ds.img_ns[0])}, mean "
+        f"absolute difference from phase 15's PNG frame {mad:.4f} levels; TCMR joints of "
+        f"{len(ds.gt_joints2d or {})} frames from the gzip dump; batch keys {sorted(batch)}")
+    if (not ds.img_ns[0].endswith("/imgs/0.jpg") or mad > 2.0 or "gt_joints2d" not in batch
+            or not np.array_equal(batch["img"][0], (jpeg.astype(np.float32) / 255.0 - 0.5) * 2.0)):
+        raise AssertionError("the JPEG-framed scene did not load as the JAX dataset loads it")
+
+    conf = smoke_conf_without_caps(osp.join(work, "smoke_nocaps.conf"))
+    steps = []
+    train_step = GarmentOptimNetwork.train_step
+
+    def step(self, *args, **kwargs):
+        """``train_step`` timed, with the launches of K1, K2 and K3."""
+        n0 = (mesh_tiles.launches, composite_tiles.launches, composite_tiles_bwd.launches)
+        torch.cuda.synchronize()
+        t = time.time()
+        loss, info = train_step(self, *args, **kwargs)
+        torch.cuda.synchronize()
+        n1 = (mesh_tiles.launches, composite_tiles.launches, composite_tiles_bwd.launches)
+        steps.append(dict(wall=time.time() - t, info=info, jpeg=self.dataset.img_ns[0],
+                          launches=tuple(b - a for a, b in zip(n0, n1))))
+        return loss, info
+
+    mesh_tiles.launches = composite_tiles.launches = composite_tiles_bwd.launches = 0
+    GarmentOptimNetwork.train_step = step
+    try:
+        t0 = time.time()
+        net = cli.main(["--conf", conf, "--data-root", copy, "--device", str(dev), "--quality",
+                        CLI_QUALITY, "--resume", osp.join(scene, "result", "latest.ckpt"),
+                        "--max-steps", str(INPUT_STEPS), "--seed", "2"])
+        wall = time.time() - t0
+    finally:
+        GarmentOptimNetwork.train_step = train_step
+    torch.cuda.synchronize()
+    launches = {"mesh_tiles": mesh_tiles.launches, "composite_tiles": composite_tiles.launches,
+                "composite_tiles_bwd": composite_tiles_bwd.launches}
+    for i, s in enumerate(steps):
+        info = s["info"]
+        conv = int(sum(info[f"{g}_rayConv"] for g in net.statics.garment_names))
+        log(f"[20] step {i} ({card}) wall {s['wall']:.3f} s launches K1/K2/K3 {s['launches']} "
+            f"rays converged {conv} loss {info['m_loss_total']:.6f}")
+        bad = {k: v for k, v in info.items() if not math.isfinite(v)}
+        if bad or s["launches"] != (3, 1, 1) or not s["jpeg"].endswith(".jpg"):
+            raise AssertionError(f"a step on the JPEG-framed scene had non-finite outputs {bad} "
+                                 f"or launches {s['launches']}, not (3, 1, 1)")
+    log(f"[20] train.main on the JPEG-framed scene: {len(steps)} steps resumed from phase 15's "
+        f"latest.ckpt in {wall:.1f} s; launches {json.dumps(launches)}; phase 20 ran "
+        f"{time.time() - t_phase:.1f} s")
+    if len(steps) != INPUT_STEPS:
+        raise AssertionError(f"train.main ran {len(steps)} steps, not {INPUT_STEPS}")
+    del net
+    return launches
+
+
 def turntable_cap_probe(net) -> None:
     """The turntable's 8 views of the garment of ``net`` (its current MC
     mesh) at the turntable's cap of 256 and at ``CAP_PROBE``: the share
@@ -1857,7 +2069,7 @@ def main() -> int:
 
     t0 = time.time()
     _build.build_all()
-    log(f"[1] built kernels and host marching cubes in {time.time() - t0:.1f} s")
+    log(f"[1] built kernels, host marching cubes and image decoder in {time.time() - t0:.1f} s")
     for line in ptxas_summary(_build.kernels_build_log()):
         log(f"[1] ptxas {line}")
 
@@ -1968,6 +2180,13 @@ def main() -> int:
     # host path, the 513³ volume; the tools, whose K1 launches count
     remesh_split_run(dev, bench_work, scene)
     launches["mesh_tiles"] += tools_run(dev, scene)
+    torch.cuda.empty_cache()
+
+    # phase 20: the scene inputs OpenCV and joblib read for the JAX
+    # package; its launches count
+    for n, c in scene_inputs_run(dev, scene,
+                                 tempfile.mkdtemp(prefix="recmv_chip_smoke_inputs_")).items():
+        launches[n] += c
 
     sources = {"mesh_tiles": ("recmv_tpu_torch/csrc/mesh_raster.cu",
                               "recmv_tpu/ops/pallas_raster.py:31"),

@@ -10,6 +10,10 @@ checkout, into ``recmv_tpu_torch/_build/`` (listed in ``.gitignore``).
   ``recmv_tpu/native/meshops.cpp``, with the JAX package's flags
   (``-march=native`` among them: both builds contract the same
   multiply-adds, so both give the same arrays on one machine).
+- ``imageio()``: the host JPEG decoder and PNG unfilter behind
+  ``data/image.imread``, compiled by ``g++`` from ``csrc/imageio.cpp``
+  with the same flags (its arithmetic is integer, so they cannot change
+  its bits).
 
 Every source compiled here lies under ``recmv_tpu_torch/csrc/``.
 
@@ -36,6 +40,7 @@ BUILD_DIR = osp.join(_PKG, "_build")
 CSRC = osp.join(_PKG, "csrc")
 KERNEL_SOURCES = ("mesh_raster.cu", "composite_fwd.cu", "composite_bwd.cu")
 MESHOPS_SRC = osp.join(CSRC, "meshops.cpp")
+IMAGEIO_SRC = osp.join(CSRC, "imageio.cpp")
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-fmad=false", "-Xptxas", "-v"]
@@ -138,7 +143,22 @@ def meshops() -> ctypes.CDLL:
     return _LIBS["meshops"]
 
 
+def imageio() -> ctypes.CDLL:
+    """The host image decoding library (built on first call)."""
+    if "imageio" not in _LIBS:
+        path = _compile("imageio", "g++", GXX_FLAGS, [IMAGEIO_SRC])
+        lib = ctypes.CDLL(path)
+        p, i64 = ctypes.c_void_p, ctypes.c_int64
+        lib.jpeg_decode.restype = ctypes.c_int
+        lib.jpeg_decode.argtypes = [p, i64, p, i64, i64, ctypes.c_char_p, i64]
+        lib.png_unfilter.restype = i64
+        lib.png_unfilter.argtypes = [p, p, i64, i64, i64]
+        _LIBS["imageio"] = lib
+    return _LIBS["imageio"]
+
+
 def build_all() -> None:
     """Build every native library of the port (the kernels need nvcc)."""
     kernels()
     meshops()
+    imageio()

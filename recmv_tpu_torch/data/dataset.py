@@ -1,9 +1,11 @@
 """Copy of ``recmv_tpu/data/dataset.py``, kept as it is apart from this
 note, its imports and two changes: the port runs where JAX, OpenCV and
 joblib are absent, and importing any ``recmv_tpu`` module imports JAX.
-Images are read with the package's own PNG reader (``data/png.py``), the
-TCMR output with ``utils/pickle_compat.load_joblib``; and unlike the JAX
-package, a TCMR file that cannot be read raises (``SceneDataset._load_tcmr``).
+Images are read with ``data/image.imread``, which gives ``cv2.imread``'s
+arrays for the PNG and JPEG files a scene holds, the TCMR output with
+``utils/pickle_compat.load_joblib``, which reads what ``joblib.load``
+reads but lz4 dumps; and unlike the JAX package, a TCMR file that cannot
+be read raises (``SceneDataset._load_tcmr``).
 
 Scene datasets — host-side data layer.
 
@@ -44,7 +46,7 @@ from ..geometry.polygons import uniform_sample
 from ..ops.math3d import dct_space
 from ..utils.pickle_compat import load_joblib
 
-from .png import imread
+from .image import imread
 
 
 # ---------------------------------------------------------------------------
@@ -206,9 +208,9 @@ class SceneDataset:
         the dump, {frame_ids, gt_joints2d, pose, betas}.
 
         Deliberate departure: the JAX package swallows every exception
-        here, which there means a scene without joblib silently skips the
-        pre-fit. This reader needs no joblib, so a file it cannot read is a
-        fault of the file and raises."""
+        here and then skips the pre-fit without a word. Here a file that
+        cannot be read raises (an lz4 dump:
+        ``pickle_compat.CompressedDumpError``)."""
         self.gt_joints2d = None
         path = osp.join(self.root, f"{self.garment_type}_tcmr_output.pkl")
         if osp.exists(path):
@@ -372,6 +374,8 @@ class SceneDataset:
         if osp.isfile(norm_f):
             normals = imread(norm_f)[:, :, ::-1]
             out["normal"] = 2.0 * normals.astype(np.float32) / 255.0 - 1.0
+        if self.gt_joints2d is not None and real in self.gt_joints2d:
+            out["gt_joints2d"] = self.gt_joints2d[real]
         return idx, out
 
     def get_batch(self, fids):

@@ -26,7 +26,8 @@ import torch
 def main(argv=None):
     from .. import resolve_device
     from ..core.builder import apose_from_type
-    from ..data.png import imread, imwrite
+    from ..data.image import imread
+    from ..data.png import imwrite
     from ..models import camera as cam_mod
     from ..models.skinner import initial_lbs_skinner, skinner_apply
     from ..models.smpl import get_smpl

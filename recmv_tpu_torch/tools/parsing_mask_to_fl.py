@@ -148,7 +148,7 @@ def extract_frame(parsing: np.ndarray, joints2d: np.ndarray, curves) -> list:
 def main(argv=None) -> int:
     """Run the tool; returns the number of annotations written."""
     from .. import resolve_device
-    from ..data.png import imread
+    from ..data.image import imread
     from ..models import camera as cam_mod
     from ..models.smpl import get_smpl, smpl_forward
 

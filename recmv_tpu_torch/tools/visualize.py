@@ -25,7 +25,8 @@ import torch
 def main(argv=None) -> int:
     """Run the tool; returns the number of overlays written."""
     from .. import resolve_device
-    from ..data.png import imread, imwrite
+    from ..data.image import imread
+    from ..data.png import imwrite
     from ..models import camera as cam_mod
     from ..ops.math3d import compute_fnorms
     from ..ops.rasterizer import rasterize_mesh, screen_with_cam_z

@@ -9,8 +9,11 @@ alignment pad and the pad itself (joblib ≥ 1.2; older dumps have no pad).
 The C unpickler cannot stop after a ``BUILD`` to read raw bytes, so this
 reader subclasses the pure-Python ``pickle._Unpickler``, maps the wrapper
 class to a local stub and reads the array where joblib's own
-``NumpyUnpickler.load_build`` does. Compressed dumps (zlib, gzip, bz2,
-lzma, xz, lz4) raise :class:`CompressedDumpError`.
+``NumpyUnpickler.load_build`` does. A compressed dump is that same stream
+in a zlib, gzip, bz2, lzma (``FORMAT_ALONE``) or xz container, which the
+standard library opens; lz4 needs the ``lz4`` package and joblib < 0.10's
+``ZF`` format keeps its arrays in side files, so both raise
+:class:`CompressedDumpError`.
 
 Unpickling runs code named by the file: read only files the scene's own
 preprocessing wrote.
@@ -18,17 +21,29 @@ preprocessing wrote.
 
 from __future__ import annotations
 
+import bz2
+import gzip
+import io
+import lzma
 import pickle
+import zlib
 
 import numpy as np
 
-_COMPRESSED_MAGIC = {b"\x78": "zlib", b"\x1f\x8b": "gzip", b"BZ": "bz2",
-                     b"\x5d\x00": "lzma", b"\xfd7zXZ": "xz", b"\x04\x22\x4d\x18": "lz4"}
+# joblib's compressor magics (numpy_pickle_utils / compressor.py)
+_DECOMPRESS = {b"\x78": zlib.decompress, b"\x1f\x8b": gzip.decompress, b"BZ": bz2.decompress,
+               b"\x5d\x00": lambda d: lzma.decompress(d, format=lzma.FORMAT_ALONE),
+               b"\xfd7zXZ": lambda d: lzma.decompress(d, format=lzma.FORMAT_XZ)}
+_REFUSED = {b"\x04\x22\x4d\x18": "is an lz4-compressed joblib dump; reading it needs the lz4 "
+                                  "package, which this reader does without: write it with "
+                                  "another compressor",
+            b"ZF": "is a joblib < 0.10 dump (ZF), whose arrays live in side files; "
+                   "write it again with a current joblib"}
 
 
 class CompressedDumpError(ValueError):
-    """The file is a compressed joblib dump, which this reader does not
-    decompress."""
+    """The file is a joblib dump in a format this reader does not
+    decompress (lz4, or joblib < 0.10's ``ZF``)."""
 
 
 class _ArrayWrapper:
@@ -81,13 +96,16 @@ class _JoblibUnpickler(pickle._Unpickler):
 
 
 def load_joblib(path: str):
-    """The object in ``path``: an uncompressed ``joblib.dump`` or a plain
-    pickle. Raises :class:`CompressedDumpError` on a compressed dump."""
+    """The object in ``path``: a ``joblib.dump`` (uncompressed, or zlib,
+    gzip, bz2, lzma or xz) or a plain pickle. Raises
+    :class:`CompressedDumpError` on an lz4 or ``ZF`` dump."""
     with open(path, "rb") as f:
-        head = f.read(8)
-        for magic, kind in _COMPRESSED_MAGIC.items():
-            if head.startswith(magic):
-                raise CompressedDumpError(f"{path} is a {kind}-compressed joblib dump; "
-                                          "write it with compress=0")
-        f.seek(0)
-        return _JoblibUnpickler(f).load()
+        data = f.read()
+    for magic, why in _REFUSED.items():
+        if data.startswith(magic):
+            raise CompressedDumpError(f"{path} {why}")
+    for magic, decompress in _DECOMPRESS.items():
+        if data.startswith(magic):
+            data = decompress(data)
+            break
+    return _JoblibUnpickler(io.BytesIO(data)).load()

@@ -268,29 +268,44 @@ def test_reads_a_jax_checkpoint_without_jax(scene, tmp_path):
                                     for t in net_j.garment_templates])
 
 
+_BLOCKED = ("jax", "recmv_tpu", "cv2", "PIL", "joblib", "h5py")
 _BENCHES = r"""
-import importlib, pkgutil, sys
-sys.modules["jax"] = None
-sys.modules["recmv_tpu"] = None
+import hashlib, importlib, pkgutil, sys
+import numpy as np
+for m in %r:
+    sys.modules[m] = None
 import recmv_tpu_torch.bench
 import recmv_tpu_torch.tools as tools
+from recmv_tpu_torch.data.image import imread
+from recmv_tpu_torch.utils.pickle_compat import load_joblib
 names = [m.name for m in pkgutil.iter_modules(tools.__path__, "recmv_tpu_torch.tools.")]
 for n in names:
     importlib.import_module(n)
-bad = [m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "recmv_tpu")
+fixtures, = sys.argv[1:]
+want = np.load(fixtures + "/expected.npz", allow_pickle=True)
+assert np.array_equal(imread(fixtures + "/jpg_q95_420.jpg"), want["img/jpg_q95_420.jpg"])
+frame = imread(fixtures + "/frame_1080.jpg")
+assert hashlib.sha256(frame.tobytes()).digest() == want["sha256/frame_1080.jpg"].tobytes()
+dump = load_joblib(fixtures + "/tcmr_xz.pkl")
+assert np.array_equal(dump[1]["gt_joints2d"], want["tcmr/1/gt_joints2d"])
+bad = [m for m in sys.modules if m.split(".")[0] in %r + ("jaxlib",)
        and sys.modules[m] is not None]
 assert not bad, bad
 print(" ".join(sorted(names)))
-"""
+""" % (_BLOCKED, _BLOCKED)
 
 
 def test_benches_import_without_jax():
     """``recmv_tpu_torch.bench`` and every ``recmv_tpu_torch.tools`` module
-    import in a subprocess in which ``import jax`` and ``import recmv_tpu``
-    fail."""
+    import in a subprocess in which ``import jax``, ``import recmv_tpu``,
+    ``cv2``, ``PIL``, ``joblib`` and ``h5py`` fail (the card's machine has
+    none of them); there the port reads a committed JPEG fixture (the
+    97×131 4:2:0 one and the 1080² frame) and an xz-compressed TCMR dump to
+    what OpenCV and joblib give."""
     env = dict(os.environ, PYTHONPATH=os.path.abspath(ROOT))
-    proc = subprocess.run([sys.executable, "-c", _BENCHES], capture_output=True, text=True,
-                          env=env, timeout=300)
+    proc = subprocess.run([sys.executable, "-c", _BENCHES,
+                           os.path.join(os.path.abspath(ROOT), "tests", "torch_fixtures")],
+                          capture_output=True, text=True, env=env, timeout=300)
     assert proc.returncode == 0, proc.stderr[-3000:]
     names = {n.rsplit(".", 1)[1] for n in proc.stdout.split()}
     assert {"bench_quality", "bench_fullstep", "bench_largepose", "bench_animation",

@@ -71,7 +71,7 @@ def _differ(a, b) -> float:
 
 def test_turntable_matches_jax(pair):
     from recmv_tpu.utils.debug_vis import turntable_curve_mesh as jturn
-    from recmv_tpu_torch.data.png import imread
+    from recmv_tpu_torch.data.image import imread
     from recmv_tpu_torch.utils.debug_vis import turntable_curve_mesh
 
     net_j, net_t, _, root, _ = pair
@@ -112,7 +112,7 @@ def test_turntable_views_batch_to_their_own_bits(pair):
 
 def test_save_debug_matches_jax(pair):
     from recmv_tpu.utils.debug_vis import save_debug as jsave
-    from recmv_tpu_torch.data.png import imread
+    from recmv_tpu_torch.data.image import imread
     from recmv_tpu_torch.utils.debug_vis import save_debug
 
     net_j, net_t, batch, root, _ = pair

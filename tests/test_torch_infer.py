@@ -594,7 +594,7 @@ def _same_objs(got_dir, want_dir, tol):
 
 
 def _pngs(d):
-    from recmv_tpu_torch.data.png import imread
+    from recmv_tpu_torch.data.image import imread
 
     return {f: imread(os.path.join(d, f)) for f in sorted(os.listdir(d)) if f.endswith(".png")}
 

@@ -840,11 +840,11 @@ def test_build_compiles_only_the_ports_sources(monkeypatch):
 
     monkeypatch.setattr(_build, "_compile", record)
     monkeypatch.setattr(_build, "_LIBS", {})
-    for build in (_build.kernels, _build.meshops):
+    for build in (_build.kernels, _build.meshops, _build.imageio):
         with pytest.raises(LookupError):
             build()
     pkg = osp.join(ROOT, "recmv_tpu_torch") + os.sep
-    assert len(seen) == len(_build.KERNEL_SOURCES) + 1
+    assert len(seen) == len(_build.KERNEL_SOURCES) + 2
     for src in seen:
         assert osp.abspath(src).startswith(pkg) and osp.isfile(src), src
 

@@ -5,8 +5,8 @@ the beta pre-fit and the builder that runs it, one large-pose
 
 (a) the TCMR reader (``utils/pickle_compat``) on a ``joblib.dump`` file, in a
     subprocess where ``import joblib``, ``jax``, ``recmv_tpu`` and ``cv2``
-    fail: the same bits as ``joblib.load``; a plain pickle reads; a
-    compressed dump raises;
+    fail: the same bits as ``joblib.load``, uncompressed and zlib-compressed;
+    a plain pickle reads; a file with lz4's magic raises;
 (b) ``LargePoseDataset`` against the JAX one on ``tests/test_data.py``'s
     layout (its ``large_pose_scene``, made by the port's generator), for
     ``a_pose`` True and False: ranges, poses, shape and curve weights
@@ -79,13 +79,13 @@ for m in ("joblib", "jax", "recmv_tpu", "cv2"):
     sys.modules[m] = None
 from recmv_tpu_torch.utils.pickle_compat import CompressedDumpError, load_joblib
 
-dump, plain, packed, out = sys.argv[1:]
-res = {"dump": load_joblib(dump), "plain": load_joblib(plain)}
+dump, plain, packed, lz4, out = sys.argv[1:]
+res = {"dump": load_joblib(dump), "plain": load_joblib(plain), "packed": load_joblib(packed)}
 try:
-    load_joblib(packed)
-    res["packed"] = "read"
+    load_joblib(lz4)
+    res["lz4"] = "read"
 except CompressedDumpError as e:
-    res["packed"] = str(e)
+    res["lz4"] = str(e)
 res["modules"] = sorted(m for m in sys.modules if m.split(".")[0] in
                         ("joblib", "jax", "recmv_tpu", "cv2") and sys.modules[m] is not None)
 with open(out, "wb") as f:
@@ -102,25 +102,28 @@ def test_tcmr_reader_without_joblib(tmp_path):
                                               np.ones((8, 17, 1))], -1).astype(np.float32),
                "pose": np.asfortranarray(rng.randn(8, 72).astype(np.float32)),
                "betas": 0.1 * rng.randn(8, 10).astype(np.float32)}}
-    paths = [str(tmp_path / n) for n in ("dump.pkl", "plain.pkl", "packed.pkl", "out.pkl")]
+    paths = [str(tmp_path / n) for n in ("dump.pkl", "plain.pkl", "packed.pkl", "lz4.pkl",
+                                         "out.pkl")]
     joblib.dump(rec, paths[0])
     with open(paths[1], "wb") as f:
         pickle.dump(rec, f)
     joblib.dump(rec, paths[2], compress=3)
+    with open(paths[3], "wb") as f:  # an lz4 frame's magic: joblib's lz4 dumps start so
+        f.write(b"\x04\x22\x4d\x18" + bytes(16))
     out = subprocess.run([sys.executable, "-c", _READER, *paths], cwd=ROOT,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    with open(paths[3], "rb") as f:
+    with open(paths[4], "rb") as f:
         res = pickle.load(f)
     assert res["modules"] == []
     want = joblib.load(paths[0])[1]
-    for kind in ("dump", "plain"):
+    for kind in ("dump", "plain", "packed"):
         got = res[kind][1]
         assert sorted(got) == sorted(want)
         for k, v in want.items():
             assert got[k].dtype == v.dtype and got[k].shape == v.shape, (kind, k)
             np.testing.assert_array_equal(got[k], v, err_msg=f"{kind} {k}")
-    assert "zlib-compressed" in res["packed"]
+    assert "lz4" in res["lz4"]
 
 
 # ---------------------------------------------------------------------------

@@ -70,7 +70,7 @@ def scenes(tmp_path_factory):
 
 
 def test_generated_scenes_agree(scenes):
-    from recmv_tpu_torch.data.png import imread
+    from recmv_tpu_torch.data.image import imread
 
     jdir, tdir = scenes
     for fid in FIDS:
@@ -87,7 +87,8 @@ def test_generated_scenes_agree(scenes):
 def test_png_reader_matches_opencv(tmp_path):
     import cv2
 
-    from recmv_tpu_torch.data.png import imread, imwrite
+    from recmv_tpu_torch.data.image import imread
+    from recmv_tpu_torch.data.png import imwrite
 
     rng = np.random.RandomState(0)
     img = (rng.rand(37, 29, 3) * 255).astype(np.uint8)

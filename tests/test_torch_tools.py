@@ -122,7 +122,7 @@ def _copy(scene, dst) -> str:
 
 
 def _pngs(d) -> dict:
-    from recmv_tpu_torch.data.png import imread
+    from recmv_tpu_torch.data.image import imread
 
     return {os.path.basename(p): imread(p) for p in sorted(glob.glob(os.path.join(d, "*.png")))}
 
@@ -262,7 +262,7 @@ def test_visualize_curve_matches_jax(scene, tmp_path, monkeypatch):
 def test_comparison_results_matches_jax(scene, tmp_path):
     """The turntable strips of two methods: the same pixels outside the
     JAX script's label band, the names in ``methods.txt`` in strip order."""
-    from recmv_tpu_torch.data.png import imread
+    from recmv_tpu_torch.data.image import imread
     from recmv_tpu_torch.tools import comparison_results
 
     methods = [f"ours={os.path.join(scene, 'meshs')}", f"mirror={os.path.join(scene, 'flipped')}"]
