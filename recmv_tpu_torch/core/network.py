@@ -145,6 +145,7 @@ class GarmentOptimNetwork:
         self.garment_extract_bboxes = None  # per garment (bmin, bmax) extraction clip box
         self.init_times = {}                # seconds per part of the last initialization
         self.fl_rescued = []                # curves the last curve fit rescued by extent
+        self.fl_fit = {}                    # the last initialization's curve fit, {name: (T, s)}
         p = dataset.params
 
         def t(a):
@@ -1344,7 +1345,8 @@ class GarmentOptimNetwork:
 
     def initialize_tmp_sdf(self, nepochs: int = 1200, save_dir: str | None = None,
                            with_normals: bool = True, template_dir: str | None = None,
-                           body_normals=None, fl_iters: int = 150, generator=None):
+                           body_normals=None, fl_iters: int = 150, generator=None,
+                           igr_draws=None):
         """The one-time scene initialization: garment templates from the
         canonical body (or the ``template_dir`` assets) with
         ``dense_boundary(2)``; their feature lines, merged (the first
@@ -1357,7 +1359,11 @@ class GarmentOptimNetwork:
         (the closed template's bbox grown by 20% of its diagonal); and
         ``initial_sdf.ckpt`` in ``save_dir`` when given. Seconds per part
         go to ``init_times`` (the IGR fits with their epochs and last
-        loss)."""
+        loss), the curve fit's (T, s) per curve to ``fl_fit``.
+
+        ``igr_draws`` (a list: the body fit's draws, then each garment's,
+        as ``igr_fit_sdf`` takes them) replaces the IGR fits' draws from
+        ``generator``."""
         from ..geometry.laplacian import laplacian_deform
         from ..geometry.matching import match_template_boundaries
         from ..geometry.mesh_utils import sample_mesh_surface, vertex_normals
@@ -1387,6 +1393,7 @@ class GarmentOptimNetwork:
         cache = os.path.join(save_dir, "fl_init", "init_trans_matrix.npz") if save_dir else None
         rigid, aligned_curves, _ = self.initialize_fl(template_curves, n_iters=fl_iters,
                                                       cache_path=cache)
+        self.fl_fit = rigid
         mark("initialize_fl", t0, iters=fl_iters)
 
         t0 = time.time()
@@ -1403,8 +1410,9 @@ class GarmentOptimNetwork:
         t0 = time.time()
         if body_normals is None:
             body_normals = vertex_normals(body_vs, body_fs)
+        draws = igr_draws or [None] * (1 + len(templates))
         loss = self.igr_fit_sdf("sdf", body_vs, body_normals if with_normals else None, nepochs,
-                                generator=generator)
+                                generator=generator, draws=draws[0])
         mark("igr body", t0, epochs=nepochs, points=len(body_vs), loss=loss)
         self.garment_extract_bboxes = []
         for gi, t in enumerate(templates):
@@ -1412,7 +1420,7 @@ class GarmentOptimNetwork:
             cv, cf, _ = t.close_hole()
             sp, sn = sample_mesh_surface(cv, cf, max(len(cv), 8192), seed=gi)
             loss = self.igr_fit_sdf(("garment", gi), sp, sn if with_normals else None, nepochs,
-                                    generator=generator)
+                                    generator=generator, draws=draws[1 + gi])
             mark(f"igr {t.name}", t0, epochs=nepochs, points=len(sp), loss=loss)
             self.garment_extract_bboxes.append(_template_box(cv))
         if save_dir:

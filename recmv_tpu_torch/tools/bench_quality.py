@@ -27,7 +27,9 @@ JAX tool monkeypatches ``register_garment``); ``--freeze-pose`` freezes the
 poses, translations and every camera leaf (the JAX tool's flag raises a
 ``TypeError`` in ``trainable_mask``). Scenes and records go under
 ``recmv_tpu_torch/_bench/``; the initialization is cached per scene and
-seed (``result/quality_init_s<seed>.ckpt``).
+seed (``result/quality_init_s<seed>.ckpt``). The record adds the final
+canonical diagnostics (``canonical_diag_final``) and the curve fit of a
+fresh initialization (``init_curve_fit``).
 
 The scorers and probes are module functions (``gt_surface``,
 ``gt_piece_surface``, ``pose_to_gt``, ``mc_pred_to_gt``, ``mc_fresh_to_gt``,
@@ -330,6 +332,18 @@ def quick_schedules():
                         laplacian_weight=(250.0,) * 2, threshold=0.5, lr=5e-4, max_dist=0.04))
 
 
+def init_curve_fit(net) -> dict:
+    """The last initialization's curve fit per curve: the fitted scale
+    ``s`` beside its prior ``INI_FL_SCALE``, the translation ``T``, and
+    whether the extent rescue fired. The record's ``init_curve_fit`` (None
+    when the initialization came from its cached checkpoint)."""
+    from ..config.constants import INI_FL_SCALE
+
+    return {n: {"s": round(float(s), 6), "ini_fl_scale": INI_FL_SCALE.get(n, 1.5),
+                "T": [round(float(x), 6) for x in T], "rescued": n in net.fl_rescued}
+            for n, (T, s) in net.fl_fit.items()}
+
+
 def freeze_pose(conf) -> None:
     """Turn off the optimization of the poses, translations and every
     camera leaf in ``conf``."""
@@ -371,18 +385,15 @@ def parse_args(argv=None):
     return args
 
 
-def main(argv=None) -> dict:
-    from .. import resolve_device
+def build(args, dev) -> tuple:
+    """The configuration's scene (generated or reused) and network, as the
+    JAX tool builds them → (scene directory, conf, dataset, sampler, net)."""
     from ..config import ConfigFactory
     from ..core.builder import build_opt_net
-    from ..core.inference import GarmentInference
     from ..core.network import TrainConfig
     from ..data.dataset import get_dataset_and_loader
     from ..data.synthetic import ensure_scene
-    from ..utils.visualizer import LocalVisualizer
 
-    args = parse_args(argv)
-    dev = resolve_device(args.device)
     two = args.garment_type == "synthetic-two"
     suffix = {"synthetic-two": "_two", "synthetic-skirt": "_skirt"}.get(args.garment_type, "")
     scene = f"{args.scene}_{args.image}_{args.frames}{suffix}"
@@ -412,15 +423,58 @@ def main(argv=None) -> dict:
         solver_times=10, surface_sample=512, curve_lr=args.curve_lr)
     net = build_opt_net(conf, dataset, osp.join(scene, "result"), resolutions=RES,
                         skinner_res=SKINNER_RES, train_cfg=cfg, seed=args.seed, device=dev)
+    return scene, conf, dataset, sampler, net
+
+
+def score(net, ratio, scene, dataset, args, dev, out_dir) -> dict:
+    """The record's scores of the network's state: the registration (the
+    quick or, with ``--production-nricp``, the production NRICP schedules)
+    and the per-frame mesh exports into ``out_dir`` (the reference's
+    ``--nI --nColor`` mode), scored against the scene's GT meshes."""
+    from ..core.inference import GarmentInference
+
+    inf = GarmentInference(net)
+    nricp, refine = (None, None) if args.production_nricp else quick_schedules()
+    t0 = time.time()
+    inf.ensure_registration(ratio, out_dir, nricp_cfg=nricp, refine_cfg=refine)
+    sync(dev)
+    t_reg = time.time() - t0
+    inf.infer_garment(np.arange(dataset.frame_num), ratio, out_dir, images=False, colors=False)
+    names = list(net.statics.garment_names)
+    sc = frame_scores(scene, out_dir, names, dataset.frame_num, dev)
+    gap = seam_gap(inf.registered, out_dir, names, dev)
+    return {
+        "pred_to_gt_dist_per_frame": [round(d, 6) for d in sc["one_sided"]],
+        "pred_to_gt_dist_mean": round(float(np.mean(sc["one_sided"])), 6),
+        "chamfer_l2_sym_per_frame": [round(d, 6) for d in sc["chamfer"]],
+        "chamfer_l2_sym_mean": round(float(np.mean(sc["chamfer"])), 6),
+        "chamfer_l2_sym_vs_closed_mean": round(float(np.mean(sc["chamfer_closed"])), 6),
+        "per_garment_pred_to_gt": {g: round(float(np.mean(v)), 6)
+                                   for g, v in sc["per_garment"].items() if v},
+        "waist_seam_gap": None if gap is None else round(gap, 6),
+        "nricp_schedule": "production-200+100" if args.production_nricp else "quick-30+15",
+        "t_registration_s": round(t_reg, 1),
+    }
+
+
+def main(argv=None) -> dict:
+    from .. import resolve_device
+    from ..utils.visualizer import LocalVisualizer
+
+    args = parse_args(argv)
+    dev = resolve_device(args.device)
+    scene, conf, dataset, sampler, net = build(args, dev)
     gen = torch.Generator(device=dev).manual_seed(args.seed)
     t0 = time.time()
     init_ckpt = osp.join(scene, "result", f"quality_init_s{args.seed}.ckpt")
+    curve_fit = None
     if osp.isfile(init_ckpt):
         net.load_checkpoint(init_ckpt)
     else:
         net.initialize_tmp_sdf(nepochs=args.init_epochs, save_dir=None, fl_iters=150,
                                generator=gen)
         net.save_checkpoint(init_ckpt, 0)
+        curve_fit = init_curve_fit(net)
     sync(dev)
     t_init = time.time() - t0
 
@@ -475,19 +529,6 @@ def main(argv=None) -> dict:
     print(f"[quality] sgd-mesh pred->gt trend: {trend}", flush=True)
     print(f"[quality] fresh-mc pred->gt trend: {trend_fresh}", flush=True)
 
-    inf = GarmentInference(net)
-    out_dir = osp.join(scene, "result", f"infer_s{args.seed}")
-    nricp, refine = (None, None) if args.production_nricp else quick_schedules()
-    t0 = time.time()
-    inf.ensure_registration(ratio, out_dir, nricp_cfg=nricp, refine_cfg=refine)
-    sync(dev)
-    t_reg = time.time() - t0
-    # mesh exports only (the reference's --nI --nColor mode)
-    inf.infer_garment(np.arange(dataset.frame_num), ratio, out_dir, images=False, colors=False)
-
-    names = list(net.statics.garment_names)
-    sc = frame_scores(scene, out_dir, names, dataset.frame_num, dev)
-    gap = seam_gap(inf.registered, out_dir, names, dev)
     out = {
         "config": {"image": args.image, "frames": args.frames, "steps": args.steps,
                    "init_epochs": args.init_epochs, "pyramid": list(RES[-1]),
@@ -495,21 +536,14 @@ def main(argv=None) -> dict:
                    "freeze_pose": bool(args.freeze_pose), "curve_lr": args.curve_lr,
                    "seed": args.seed},
         **device_record(dev),
-        "pred_to_gt_dist_per_frame": [round(d, 6) for d in sc["one_sided"]],
-        "pred_to_gt_dist_mean": round(float(np.mean(sc["one_sided"])), 6),
-        "chamfer_l2_sym_per_frame": [round(d, 6) for d in sc["chamfer"]],
-        "chamfer_l2_sym_mean": round(float(np.mean(sc["chamfer"])), 6),
-        "chamfer_l2_sym_vs_closed_mean": round(float(np.mean(sc["chamfer_closed"])), 6),
+        **score(net, ratio, scene, dataset, args, dev,
+                osp.join(scene, "result", f"infer_s{args.seed}")),
         "garment_type": args.garment_type,
-        "per_garment_pred_to_gt": {g: round(float(np.mean(v)), 6)
-                                   for g, v in sc["per_garment"].items() if v},
-        "waist_seam_gap": None if gap is None else round(gap, 6),
         "mc_pred_to_gt_trend": {str(k): round(v, 6) for k, v in trend.items()},
         "mc_fresh_to_gt_trend": {str(k): round(v, 6) for k, v in trend_fresh.items()},
         "canonical_diag_final": diags[steps],
-        "nricp_schedule": "production-200+100" if args.production_nricp else "quick-30+15",
+        "init_curve_fit": curve_fit,
         "t_init_s": round(t_init, 1), "t_train_s": round(t_train, 1),
-        "t_registration_s": round(t_reg, 1),
     }
     return write_record(args.out, out)
 

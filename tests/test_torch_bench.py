@@ -507,6 +507,36 @@ def test_quality_tool_and_evaluation_on_cpu(bench_dir):
     assert _rel(got, want) < 1e-5
 
 
+def test_rescore_tool_scores_a_checkpoint_as_the_quality_tool(bench_dir):
+    """After the quality tool's run on the same scene: ``rescore_quality``
+    on that run's final checkpoint, with its flags, scores it through the
+    same ``bench_quality.score`` at the same ``deformerRatio``: the same
+    keys and schedule, and scores within 20% of the run's. They are not
+    equal: the run registers its training mesh (extracted at step 0, then
+    moved by one SGD step), the tool a fresh extraction of the
+    checkpoint's SDF (measured 3.4% apart in ``pred_to_gt``, 10.2% in the
+    chamfer against the closed GT)."""
+    from recmv_tpu_torch.tools import rescore_quality
+
+    with open(osp.join(bench_dir, "q.json")) as f:
+        want = json.load(f)
+    scene = osp.join(bench_dir, "q_48_2")
+    got = rescore_quality.main([
+        "--ckpt", osp.join(scene, "result", "quality_final_s0.ckpt"), "--device", "cpu",
+        "--image", "48", "--frames", "2", "--steps", "1", "--init-epochs", "6",
+        "--freeze-pose", "--scene", osp.join(bench_dir, "q"),
+        "--out", osp.join(bench_dir, "rescore.json")])
+    assert got["opt_times"] == 1 and got["deformer_ratio"] == 0.5
+    assert osp.isdir(osp.join(scene, "result", "rescore_s0", "meshs"))
+    assert got["nricp_schedule"] == want["nricp_schedule"]
+    assert set(got["per_garment_pred_to_gt"]) == set(want["per_garment_pred_to_gt"])
+    for k in ("pred_to_gt_dist_per_frame", "chamfer_l2_sym_per_frame"):
+        assert len(got[k]) == 2
+        np.testing.assert_allclose(got[k], want[k], rtol=0.2, err_msg=k)
+    for k in ("chamfer_l2_sym_mean", "chamfer_l2_sym_vs_closed_mean"):
+        assert got[k] > 0 and _rel(got[k], want[k]) < 0.2, k
+
+
 def test_fitting_tool_on_cpu(bench_dir):
     from recmv_tpu_torch.data.synthetic import generate_scene
     from recmv_tpu_torch.tools import fitting_garment_meshes
@@ -593,12 +623,16 @@ def test_ensure_scene_reuses_or_regenerates(tmp_path):
         assert json.load(f)["image_size"] == 40
 
 
-def test_quality_report_sets_a_run_beside_its_record():
+def test_quality_report_sets_a_run_beside_its_record(tmp_path):
     """``quality_vs_records.compare`` on a TPU record against itself and
-    against a copy whose trend leaves the band from step 150 on."""
+    against a copy whose trend leaves the band from step 150 on; beside a
+    JAX CPU record (``jax_cpu``: the same keys and band), here the TPU
+    record with its trend halved and its chamfer 0.8×; and
+    ``jax_cpu_record``'s choice among the CPU records of a configuration:
+    the one at the run's steps, and none when there is no such record."""
     import copy
 
-    from recmv_tpu_torch.tools.quality_vs_records import CONFIGS, compare
+    from recmv_tpu_torch.tools.quality_vs_records import CONFIGS, compare, jax_cpu_record
 
     with open(osp.join(ROOT, CONFIGS["tube512_gateon"][1])) as f:
         record = json.load(f)
@@ -614,3 +648,79 @@ def test_quality_report_sets_a_run_beside_its_record():
     far = compare(run, record)
     assert not far["in_band"] and far["trend_leaves_band_at"] == 150
     assert far["config_differs"] == {"steps": (400, 500)}
+    assert "jax_cpu" not in far
+
+    cpu = copy.deepcopy(record)
+    cpu["chamfer_l2_sym_mean"] *= 0.8
+    cpu["mc_pred_to_gt_trend"] = {k: v / 2 for k, v in record["mc_pred_to_gt_trend"].items()}
+    both = compare(record, record, cpu)
+    assert both["in_band"] and both["trend_leaves_band_at"] is None
+    beside = both["jax_cpu"]
+    assert beside["chamfer_l2_sym_mean"] == (record["chamfer_l2_sym_mean"],
+                                             cpu["chamfer_l2_sym_mean"], 1.25)
+    assert beside["in_band"] and beside["trend_leaves_band_at"] == 0
+    assert beside["mc_pred_to_gt_trend"]["0"][2] == 2.0
+    assert beside["config_differs"] == {} and "device" not in beside
+
+    assert jax_cpu_record("two", 120, str(tmp_path)) is None
+    for name, steps in (("jax_cpu_two_steps1", 1), ("jax_cpu_two", 120)):
+        with open(tmp_path / f"{name}.json", "w") as f:
+            json.dump({"config": {"steps": steps}}, f)
+    assert jax_cpu_record("two", 1, str(tmp_path))["config"]["steps"] == 1
+    assert jax_cpu_record("two", 120, str(tmp_path))["config"]["steps"] == 120
+    assert jax_cpu_record("two", 7, str(tmp_path)) is None
+    os.remove(tmp_path / "jax_cpu_two.json")
+    assert jax_cpu_record("two", 120, str(tmp_path)) is None
+    assert jax_cpu_record("two", 1, str(tmp_path))["config"]["steps"] == 1
+
+
+def test_jax_reference_names_and_exports_a_jax_run(tmp_path, monkeypatch):
+    """``tests/jax_reference.py``, the harness that runs the JAX tool on
+    the CPU: the record names, the scene directory names the
+    two tools give each configuration, and ``--export``: the JAX run's
+    scene without its outputs, the skinner cache, the initialization as the
+    port's seed-0 cache and the port's ``scene_meta.json``, which the
+    port's ``ensure_scene`` then reuses as it is; a run on a directory
+    that holds an initialization needs ``--reuse-init``, which deletes the
+    scene's cached registration before the tool runs, and the record (the
+    tool's JSON with ``jax_cpu``) names no path of this run."""
+    from recmv_tpu_torch.data.synthetic import ensure_scene
+    import jax_reference as JR
+
+    assert JR.record_name("two", 120) == "jax_cpu_two"
+    assert JR.record_name("tube512_gateon", 1) == "jax_cpu_tube512_gateon_steps1"
+    assert [JR.scene_of(n)[0] for n in ("tube512_gateon", "two", "skirt")] == [
+        "tube512_gateon_512_8", "two_256_8_two", "skirt_256_8_skirt"]
+    src = tmp_path / "jax" / "skirt_256_8_skirt"
+    for rel in ("imgs/0000.png", "camera.npz", "result/initial_skinner_0.npz",
+                "result/quality_init.ckpt", "result/quality_final.ckpt", "result/infer/x.obj",
+                "scene_meta.json"):
+        (src / rel).parent.mkdir(parents=True, exist_ok=True)
+        (src / rel).write_text(rel)
+    JR.main(["skirt", "--scene-dir", str(tmp_path / "jax"), "--export", str(tmp_path / "port")])
+    out = tmp_path / "port" / "skirt_256_8_skirt"
+    assert sorted(p.name for p in (out / "result").iterdir()) == [
+        "initial_skinner_0.npz", "jax_final.ckpt", "quality_init_s0.ckpt"]
+    assert (out / "result" / "jax_final.ckpt").read_text() == "result/quality_final.ckpt"
+    assert (out / "result" / "quality_init_s0.ckpt").read_text() == "result/quality_init.ckpt"
+    assert (out / "imgs" / "0000.png").read_text() == "imgs/0000.png"
+    assert ensure_scene(str(out), n_frames=8, image_size=256, skinner_res=(33, 57, 17),
+                        garment_type="synthetic-skirt") == str(out)
+    assert (out / "camera.npz").is_file()
+    with pytest.raises(SystemExit, match="holds an initialization"):
+        JR.main(["skirt", "--scene-dir", str(tmp_path / "jax")])
+    assert (src / "result" / "infer").is_dir()
+
+    def fake_tool(cmd, **kw):          # the JAX tool, as far as its record goes
+        assert cmd[:3] == ["taskset", "-c", "1"] and "--platform" in cmd
+        assert not (src / "result" / "infer").exists()
+        with open(cmd[cmd.index("--out") + 1], "w") as f:
+            json.dump({"config": {"steps": int(cmd[cmd.index("--steps") + 1])}}, f)
+
+    monkeypatch.setattr(JR.subprocess, "run", fake_tool)
+    monkeypatch.setattr(JR, "RECORDS", str(tmp_path / "records"))
+    monkeypatch.setattr(JR, "cpu_model", lambda: "cpu")
+    rec = JR.main(["skirt", "--scene-dir", str(tmp_path / "jax"), "--reuse-init", "--cpus", "1"])
+    assert rec["config"]["steps"] == 120 and rec["jax_cpu"]["init_reused"]
+    assert "<scene>" in rec["jax_cpu"]["command"] and str(tmp_path) not in json.dumps(rec)
+    assert (tmp_path / "records" / "jax_cpu_skirt.json").is_file()
