@@ -42,6 +42,7 @@ from __future__ import annotations
 import argparse
 import glob
 import os.path as osp
+import shutil
 import time
 
 import numpy as np
@@ -385,6 +386,13 @@ def parse_args(argv=None):
     return args
 
 
+def scene_path(args) -> str:
+    """The configuration's scene directory: ``--scene`` +
+    ``_<image>_<frames>[_two|_skirt]``, as the JAX tool names it."""
+    suffix = {"synthetic-two": "_two", "synthetic-skirt": "_skirt"}.get(args.garment_type, "")
+    return f"{args.scene}_{args.image}_{args.frames}{suffix}"
+
+
 def build(args, dev) -> tuple:
     """The configuration's scene (generated or reused) and network, as the
     JAX tool builds them → (scene directory, conf, dataset, sampler, net)."""
@@ -395,8 +403,7 @@ def build(args, dev) -> tuple:
     from ..data.synthetic import ensure_scene
 
     two = args.garment_type == "synthetic-two"
-    suffix = {"synthetic-two": "_two", "synthetic-skirt": "_skirt"}.get(args.garment_type, "")
-    scene = f"{args.scene}_{args.image}_{args.frames}{suffix}"
+    scene = scene_path(args)
     ensure_scene(scene, n_frames=args.frames, image_size=args.image, skinner_res=SKINNER_RES,
                  garment_type=args.garment_type, device=dev)
 
@@ -426,19 +433,41 @@ def build(args, dev) -> tuple:
     return scene, conf, dataset, sampler, net
 
 
+def final_ratio(net) -> dict:
+    """The ratios of a trained state's last step: ``deformerRatio`` as the
+    step set it, ``(opt_times − 1) / 2500 + 0.5``."""
+    return {"sdfRatio": 1.0, "deformerRatio": max(net.opt_times - 1, 0) / 2500.0 + 0.5,
+            "renderRatio": 1.0}
+
+
 def score(net, ratio, scene, dataset, args, dev, out_dir) -> dict:
     """The record's scores of the network's state: the registration (the
     quick or, with ``--production-nricp``, the production NRICP schedules)
-    and the per-frame mesh exports into ``out_dir`` (the reference's
-    ``--nI --nColor`` mode), scored against the scene's GT meshes."""
+    into ``out_dir``, emptied first so that nothing of an earlier
+    registration is reused, then ``score_registered``."""
     from ..core.inference import GarmentInference
 
+    shutil.rmtree(out_dir, ignore_errors=True)
     inf = GarmentInference(net)
     nricp, refine = (None, None) if args.production_nricp else quick_schedules()
     t0 = time.time()
     inf.ensure_registration(ratio, out_dir, nricp_cfg=nricp, refine_cfg=refine)
     sync(dev)
     t_reg = time.time() - t0
+    return {**score_registered(net, ratio, scene, dataset, inf.registered, out_dir, dev),
+            "nricp_schedule": "production-200+100" if args.production_nricp else "quick-30+15",
+            "t_registration_s": round(t_reg, 1)}
+
+
+def score_registered(net, ratio, scene, dataset, registered, out_dir, dev) -> dict:
+    """The scores of the registered garments ``registered`` ({name: the
+    registration's (verts, faces, labels)}): the per-frame mesh exports
+    into ``out_dir`` (the reference's ``--nI --nColor`` mode), scored
+    against the scene's GT meshes."""
+    from ..core.inference import GarmentInference
+
+    inf = GarmentInference(net)
+    inf.registered = dict(registered)
     inf.infer_garment(np.arange(dataset.frame_num), ratio, out_dir, images=False, colors=False)
     names = list(net.statics.garment_names)
     sc = frame_scores(scene, out_dir, names, dataset.frame_num, dev)
@@ -452,8 +481,6 @@ def score(net, ratio, scene, dataset, args, dev, out_dir) -> dict:
         "per_garment_pred_to_gt": {g: round(float(np.mean(v)), 6)
                                    for g, v in sc["per_garment"].items() if v},
         "waist_seam_gap": None if gap is None else round(gap, 6),
-        "nricp_schedule": "production-200+100" if args.production_nricp else "quick-30+15",
-        "t_registration_s": round(t_reg, 1),
     }
 
 

@@ -21,7 +21,16 @@ the record's. The root records are the JAX package's on a TPU v5e: they
 are read here for the comparison and never written. Under ``jax_cpu``
 each run stands beside today's JAX package, run on the CPU by
 ``tests/jax_reference.py`` (``records/jax_cpu_*.json``, the record of the
-run's step count), with the same keys and the same band. ``--steps``
+run's step count), with the same keys and the same band, and under
+``jax_cpu_pallas_scan`` beside the JAX package's run with the port's
+visibility scan (``jax_reference --port-scan``: the Pallas binning of the
+TPU path, which the port follows; the CPU run's own scan bins as the XLA
+path does) where that record exists. ``--rescore`` then scores each
+run's final checkpoint again with ``rescore_quality``, which registers a
+fresh extraction of its SDF where the run registered its training mesh,
+and reports both beside each other (``fresh_vs_training``: the
+symmetric chamfer and each garment's one-sided distance, training, fresh
+and fresh / training). ``--steps``
 overrides every configuration's step count (``--steps 1``: the
 initialization and the step-0 probe, e.g. over many seeds); such runs are
 named ``<config>_steps<N>_s<seed>`` and reported in
@@ -55,13 +64,15 @@ JOBS = 8
 RECORDS = osp.join(osp.dirname(osp.abspath(__file__)), "records")
 
 
-def jax_cpu_record(name: str, steps: int, records: str = RECORDS) -> dict | None:
+def jax_cpu_record(name: str, steps: int, records: str = RECORDS,
+                   port_scan: bool = False) -> dict | None:
     """Today's JAX package's CPU record of configuration ``name`` at
-    ``steps`` steps (``tests/jax_reference.py``), None when there is none:
-    a run is set only beside a record of its own step count."""
+    ``steps`` steps (``tests/jax_reference.py``; with ``port_scan``, its
+    run with the port's visibility scan), None when there is none: a run is
+    set only beside a record of its own step count."""
     full = steps_of(CONFIGS[name][0])
     path = osp.join(records, f"jax_cpu_{name}" + ("" if steps == full else f"_steps{steps}")
-                    + ".json")
+                    + ("_pallas_scan" if port_scan else "") + ".json")
     if not osp.isfile(path):
         return None
     with open(path) as f:
@@ -81,16 +92,33 @@ def with_steps(args: list, steps: int | None) -> list:
     return args
 
 
-def compare(run: dict, record: dict, jax_cpu: dict | None = None) -> dict:
-    """One run beside its TPU record and, under ``jax_cpu``, beside today's
-    JAX package's CPU record when one is given (the same keys, the same
-    band)."""
+def compare(run: dict, record: dict, jax_cpu: dict | None = None,
+            jax_cpu_pallas_scan: dict | None = None) -> dict:
+    """One run beside its TPU record and, under ``jax_cpu`` and
+    ``jax_cpu_pallas_scan``, beside today's JAX package's CPU records when
+    they are given (the same keys, the same band)."""
     out = _beside(run, record)
     out["device"] = run["device"]
     out["seconds"] = {k: run[k] for k in ("t_init_s", "t_train_s", "t_registration_s")}
     if jax_cpu is not None:
         out["jax_cpu"] = _beside(run, jax_cpu)
+    if jax_cpu_pallas_scan is not None:
+        out["jax_cpu_pallas_scan"] = _beside(run, jax_cpu_pallas_scan)
     return out
+
+
+def fresh_vs_training(run: dict, fresh: dict) -> dict:
+    """A run's scores (its training mesh registered) beside
+    ``rescore_quality``'s on its final checkpoint (a fresh extraction
+    registered): (training, fresh, fresh / training)."""
+    def three(a, b):
+        return (a, b, None if not a else round(b / a, 4))
+
+    return {"chamfer_l2_sym_mean": three(run["chamfer_l2_sym_mean"],
+                                         fresh["chamfer_l2_sym_mean"]),
+            "per_garment_pred_to_gt": {g: three(v, fresh["per_garment_pred_to_gt"].get(g))
+                                       for g, v in run["per_garment_pred_to_gt"].items()},
+            "device": fresh["device"]}
 
 
 def _beside(run: dict, record: dict) -> dict:
@@ -133,6 +161,9 @@ def main(argv=None) -> dict:
     ap.add_argument("--steps", type=int, default=None,
                     help="override the configurations' step counts (1: the initialization "
                          "and the step-0 probe)")
+    ap.add_argument("--rescore", action="store_true",
+                    help="also score each run's final checkpoint on a fresh extraction "
+                         "(rescore_quality) and report it beside the run's own score")
     ap.add_argument("--no-run", action="store_true",
                     help="only report, from the records already in --out-dir")
     ap.add_argument("--out-dir", default=bench_path("quality"), help="records, logs, report")
@@ -144,41 +175,64 @@ def main(argv=None) -> dict:
     active, done = [], {}
     t0 = time.time()
 
-    def finish(name, seed, log, proc):
-        done[(name, seed)] = proc.wait()
+    def finish(key, log, proc):
+        done[key] = proc.wait()
         log.close()
-        print(f"[quality] {name} seed {seed}: exit {done[(name, seed)]} at "
-              f"{time.time() - t0:.0f} s", flush=True)
+        print(f"[quality] {key}: exit {done[key]} at {time.time() - t0:.0f} s", flush=True)
 
-    for name, seed in [] if args.no_run else runs:
-        if len(active) >= JOBS:
+    def run_all(jobs):
+        for key, cmd in jobs:
+            if len(active) >= JOBS:
+                finish(*active.pop(0))
+            log = open(osp.join(args.out_dir, f"{key}.log"), "w")
+            active.append((key, log, subprocess.Popen(cmd, cwd=REPO, stdout=log,
+                                                      stderr=subprocess.STDOUT)))
+        while active:
             finish(*active.pop(0))
-        cmd = [sys.executable, "-m", "recmv_tpu_torch.tools.bench_quality",
-               *with_steps(CONFIGS[name][0], args.steps), "--seed", str(seed),
-               "--scene", osp.join(args.scene_dir, f"{name}{tag}_s{seed}"),
-               "--out", osp.join(args.out_dir, f"{name}{tag}_s{seed}.json")]
-        log = open(osp.join(args.out_dir, f"{name}{tag}_s{seed}.log"), "w")
-        active.append((name, seed, log, subprocess.Popen(cmd, cwd=REPO, stdout=log,
-                                                         stderr=subprocess.STDOUT)))
-    for job in active:
-        finish(*job)
+
+    def bench_args(name, seed):
+        return [*with_steps(CONFIGS[name][0], args.steps), "--seed", str(seed),
+                "--scene", osp.join(args.scene_dir, f"{name}{tag}_s{seed}")]
+
+    run_all([] if args.no_run else [
+        (f"{name}{tag}_s{seed}",
+         [sys.executable, "-m", "recmv_tpu_torch.tools.bench_quality", *bench_args(name, seed),
+          "--out", osp.join(args.out_dir, f"{name}{tag}_s{seed}.json")])
+        for name, seed in runs])
+    if args.rescore and not args.no_run:
+        from .bench_quality import parse_args, scene_path
+
+        run_all([(f"{name}{tag}_s{seed}_rescore",
+                  [sys.executable, "-m", "recmv_tpu_torch.tools.rescore_quality", "--ckpt",
+                   osp.join(scene_path(parse_args(bench_args(name, seed))), "result",
+                            f"quality_final_s{seed}.ckpt"), *bench_args(name, seed),
+                   "--out", osp.join(args.out_dir, f"{name}{tag}_s{seed}_rescore.json")])
+                 for name, seed in runs if done.get(f"{name}{tag}_s{seed}") == 0])
     report = {}
     for name, seed in runs:
         key = f"{name}{tag}_s{seed}"
-        if done.get((name, seed), 0) != 0:
-            report[key] = {"exit": done[(name, seed)]}
+        if done.get(key, 0) != 0:
+            report[key] = {"exit": done[key]}
             continue
         with open(osp.join(args.out_dir, f"{key}.json")) as f:
             run = json.load(f)
         with open(osp.join(REPO, CONFIGS[name][1])) as f:
             record = json.load(f)
-        report[key] = compare(run, record, jax_cpu_record(name, run["config"]["steps"]))
+        report[key] = compare(run, record, jax_cpu_record(name, run["config"]["steps"]),
+                              jax_cpu_record(name, run["config"]["steps"], port_scan=True))
         report[key]["init_curve_fit"] = run.get("init_curve_fit")
+        rescored = osp.join(args.out_dir, f"{key}_rescore.json")
+        if done.get(f"{key}_rescore", 0) != 0:
+            report[key]["fresh_vs_training"] = {"exit": done[f"{key}_rescore"]}
+        elif args.rescore and osp.isfile(rescored):
+            with open(rescored) as f:
+                report[key]["fresh_vs_training"] = fresh_vs_training(run, json.load(f))
     with open(osp.join(args.out_dir, f"report{tag}.json"), "w") as f:
         json.dump(report, f, indent=1)
     for key, rec in report.items():
         print(f"[quality] {key}: {json.dumps(rec)}", flush=True)
-    failed = [k for k, v in report.items() if "exit" in v]
+    failed = [k for k, v in report.items()
+              if "exit" in v or "exit" in v.get("fresh_vs_training", {})]
     if failed:
         raise RuntimeError(f"bench_quality failed: {failed} (logs in {args.out_dir})")
     return report

@@ -7,8 +7,8 @@ port's registration, export and scoring (``bench_quality.score``).
 The scene and the network are built as ``bench_quality`` builds them;
 the checkpoint's state is loaded and ``deformerRatio`` set as the last
 training step set it (``(opt_times − 1) / 2500 + 0.5``); then
-``bench_quality.score`` registers, exports into ``result/rescore_s<seed>/``
-and scores, and the record has ``bench_quality``'s scores
+``bench_quality.score`` empties ``result/rescore_s<seed>/``, registers,
+exports there and scores, and the record has ``bench_quality``'s scores
 (``chamfer_l2_sym_mean`` and the rest). A checkpoint holds no mesh, so
 the registration's target is a fresh ``marching_cube_update`` of the
 checkpoint's SDF, where a training run (of either package) registers its
@@ -38,8 +38,7 @@ def main(argv=None) -> dict:
     dev = resolve_device(args.device)
     scene, _, dataset, _, net = bq.build(args, dev)
     net.load_checkpoint(own.ckpt)
-    ratio = {"sdfRatio": 1.0, "deformerRatio": (net.opt_times - 1) / 2500.0 + 0.5,
-             "renderRatio": 1.0}
+    ratio = bq.final_ratio(net)
     return write_record(args.out, {
         "ckpt": osp.basename(own.ckpt), "opt_times": net.opt_times,
         "deformer_ratio": ratio["deformerRatio"], **device_record(dev),

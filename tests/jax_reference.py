@@ -3,7 +3,7 @@ configurations of ``quality_vs_records`` and keep its records as the port's
 reference of today's JAX package.
 
     python tests/jax_reference.py tube512_gateon --steps 1 \\
-        --scene-dir <dir> [--cpus 2-4] [--reuse-init]
+        --scene-dir <dir> [--cpus 2-4] [--reuse-init] [--port-scan]
 
 A harness of the tests side, not part of the port and not a test: it
 needs a machine with the JAX package's dependencies (the card's machine
@@ -30,6 +30,18 @@ The record, ``records/jax_cpu_<name>[_steps<N>].json`` (the suffix when
 ``--steps`` differs from the configuration's), is the tool's JSON with
 ``jax_cpu`` added: the CPU model (``lscpu``), the cores, the command and
 the wall seconds. Its numbers are CPU figures.
+
+``--port-scan`` runs the JAX tool with the port's visibility scan in place
+of the JAX one (``recmv_tpu.core.inference.visible_vertex_mask`` replaced
+in the tool's process by ``port_scan_mask``, no JAX file touched): on the
+CPU the JAX mesh z-buffer takes its XLA path, whose tile binning keeps the
+nearest ``cap`` faces by bf16 depth with ties to the lower face index and
+no span limit, where the TPU's Pallas path and the port keep the nearest by
+a 32-bit quantized depth within a span of 3 tiles; the registration's
+12-view 512² scan (cap 512) overflows its tiles on the larger garments, so
+the two paths see other vertices. Its record is
+``records/jax_cpu_<name>[_steps<N>]_pallas_scan.json``, with
+``jax_cpu["scan"]`` saying which scan ran.
 
 ``--export DIR`` runs nothing: it copies the JAX run's scene and cached
 initialization to ``DIR`` in the layout the port's ``bench_quality`` reads
@@ -63,6 +75,8 @@ from recmv_tpu_torch.tools.bench_quality import SKINNER_RES  # noqa: E402
 from recmv_tpu_torch.tools.quality_vs_records import (CONFIGS, RECORDS, steps_of,  # noqa: E402
                                                       with_steps)
 
+TOOL_WITH_PORT_SCAN = "--tool-with-port-scan"     # the subprocess of --port-scan
+
 
 def cpu_model() -> str:
     """``lscpu``'s model name."""
@@ -71,8 +85,38 @@ def cpu_model() -> str:
                  if ln.startswith("Model name")), "unknown")
 
 
-def record_name(name: str, steps: int) -> str:
-    return f"jax_cpu_{name}" + ("" if steps == steps_of(CONFIGS[name][0]) else f"_steps{steps}")
+def record_name(name: str, steps: int, port_scan: bool = False) -> str:
+    return (f"jax_cpu_{name}" + ("" if steps == steps_of(CONFIGS[name][0]) else f"_steps{steps}")
+            + ("_pallas_scan" if port_scan else ""))
+
+
+def port_scan_mask(verts, faces, **kw):
+    """The port's visibility scan on the CPU (the Pallas binning of the
+    TPU path) with the JAX ``visible_vertex_mask``'s signature: what
+    ``--port-scan`` and ``tests/registration_report.py`` put in its place."""
+    from recmv_tpu_torch.core.inference import visible_vertex_mask
+
+    return visible_vertex_mask(verts, faces, device="cpu", **kw)
+
+
+def run_tool_with_port_scan(tool_args: list) -> None:
+    """Run ``tools/bench_quality.py`` in this process with ``port_scan_mask``
+    in place of ``recmv_tpu.core.inference.visible_vertex_mask``
+    (``--port-scan``'s subprocess). The JAX tool's ``register_garment``
+    looks the scan up in its module at each call."""
+    import runpy
+
+    import jax
+    import torch
+
+    jax.config.update("jax_platforms", "cpu")
+    from recmv_tpu.core import inference
+
+    torch.set_num_threads(max(len(os.sched_getaffinity(0)), 1))
+    inference.visible_vertex_mask = port_scan_mask
+    tool = osp.join(REPO, "tools", "bench_quality.py")
+    sys.argv = [tool, *tool_args]
+    runpy.run_path(tool, run_name="__main__")
 
 
 def scene_of(name: str) -> tuple:
@@ -111,12 +155,18 @@ def export_for_port(scene_dir: str, name: str, dest: str) -> str:
 
 
 def main(argv=None) -> dict:
+    argv = sys.argv[1:] if argv is None else list(argv)
+    if argv[:1] == [TOOL_WITH_PORT_SCAN]:
+        run_tool_with_port_scan(argv[1:])
+        return {}
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("config", choices=list(CONFIGS))
     ap.add_argument("--steps", type=int, default=None)
     ap.add_argument("--scene-dir", required=True)
     ap.add_argument("--cpus", default=None, help="cores to pin to, as taskset takes them")
     ap.add_argument("--reuse-init", action="store_true")
+    ap.add_argument("--port-scan", action="store_true",
+                    help="register with the port's visibility scan (the Pallas binning)")
     ap.add_argument("--export", default=None, metavar="DIR",
                     help="copy the run's scene and initialization for the port; run nothing")
     args = ap.parse_args(argv)
@@ -133,9 +183,12 @@ def main(argv=None) -> dict:
     shutil.rmtree(osp.join(args.scene_dir, scene_of(args.config)[0], "result", "infer"),
                   ignore_errors=True)
     os.makedirs(args.scene_dir, exist_ok=True)
-    out = osp.join(args.scene_dir, record_name(args.config, steps) + ".json")
-    cmd = [sys.executable, "-u", osp.join("tools", "bench_quality.py"), "--platform", "cpu",
-           *tool_args, "--scene", scene, "--out", out]
+    name = record_name(args.config, steps, args.port_scan)
+    out = osp.join(args.scene_dir, name + ".json")
+    tool = ([osp.join("tests", "jax_reference.py"), TOOL_WITH_PORT_SCAN] if args.port_scan
+            else [osp.join("tools", "bench_quality.py")])
+    cmd = [sys.executable, "-u", *tool, "--platform", "cpu", *tool_args, "--scene", scene,
+           "--out", out]
     if args.cpus:
         cmd = ["taskset", "-c", args.cpus, *cmd]
     t0 = time.time()
@@ -150,9 +203,11 @@ def main(argv=None) -> dict:
                             for c in cmd[cmd.index(sys.executable):]),
         "wall_s": round(wall, 1),
         "init_reused": cached,
+        "scan": ("the port's (Pallas binning)" if args.port_scan
+                 else "the JAX package's on the CPU (XLA binning)"),
     }
     os.makedirs(RECORDS, exist_ok=True)
-    path = osp.join(RECORDS, record_name(args.config, steps) + ".json")
+    path = osp.join(RECORDS, name + ".json")
     with open(path, "w") as f:
         json.dump(record, f, indent=1)
     print(f"[jax_reference] {path}: wall {wall:.1f} s", flush=True)

@@ -674,6 +674,36 @@ def test_quality_report_sets_a_run_beside_its_record(tmp_path):
     assert jax_cpu_record("two", 1, str(tmp_path))["config"]["steps"] == 1
 
 
+def test_quality_report_sets_the_pallas_scan_record_and_a_fresh_score_beside_a_run(tmp_path):
+    """``quality_vs_records``: a run beside the JAX CPU record with the
+    port's scan (``jax_cpu_pallas_scan``, read by ``jax_cpu_record(...,
+    port_scan=True)``), and ``fresh_vs_training``: a run's scores beside
+    ``rescore_quality``'s on its final checkpoint, with fresh / training."""
+    import copy
+
+    from recmv_tpu_torch.tools.quality_vs_records import (CONFIGS, compare, fresh_vs_training,
+                                                          jax_cpu_record)
+
+    with open(osp.join(ROOT, CONFIGS["two"][1])) as f:
+        record = json.load(f)
+    scan = copy.deepcopy(record)
+    scan["chamfer_l2_sym_mean"] *= 0.5
+    with open(tmp_path / "jax_cpu_two_pallas_scan.json", "w") as f:
+        json.dump(scan, f)
+    assert jax_cpu_record("two", 120, str(tmp_path)) is None
+    got = jax_cpu_record("two", 120, str(tmp_path), port_scan=True)
+    both = compare(record, record, None, got)
+    assert "jax_cpu" not in both and both["jax_cpu_pallas_scan"]["chamfer_l2_sym_mean"][2] == 2.0
+    fresh = dict(copy.deepcopy(record), device="card")
+    fresh["chamfer_l2_sym_mean"] *= 1.25
+    fresh["per_garment_pred_to_gt"]["skirt"] *= 0.5
+    fv = fresh_vs_training(record, fresh)
+    assert fv["chamfer_l2_sym_mean"] == (record["chamfer_l2_sym_mean"],
+                                         fresh["chamfer_l2_sym_mean"], 1.25)
+    assert fv["per_garment_pred_to_gt"]["skirt"][2] == 0.5
+    assert fv["per_garment_pred_to_gt"]["upper_tube"][2] == 1.0 and fv["device"] == "card"
+
+
 def test_jax_reference_names_and_exports_a_jax_run(tmp_path, monkeypatch):
     """``tests/jax_reference.py``, the harness that runs the JAX tool on
     the CPU: the record names, the scene directory names the
@@ -724,3 +754,11 @@ def test_jax_reference_names_and_exports_a_jax_run(tmp_path, monkeypatch):
     assert rec["config"]["steps"] == 120 and rec["jax_cpu"]["init_reused"]
     assert "<scene>" in rec["jax_cpu"]["command"] and str(tmp_path) not in json.dumps(rec)
     assert (tmp_path / "records" / "jax_cpu_skirt.json").is_file()
+    assert "XLA" in rec["jax_cpu"]["scan"]
+    # --port-scan: the tool runs in the harness's process with the port's scan
+    assert JR.record_name("skirt", 1, port_scan=True) == "jax_cpu_skirt_steps1_pallas_scan"
+    rec = JR.main(["skirt", "--scene-dir", str(tmp_path / "jax"), "--reuse-init", "--cpus", "1",
+                   "--port-scan"])
+    assert "tests/jax_reference.py --tool-with-port-scan --platform cpu" in rec["jax_cpu"][
+        "command"] and "Pallas" in rec["jax_cpu"]["scan"]
+    assert (tmp_path / "records" / "jax_cpu_skirt_pallas_scan.json").is_file()
