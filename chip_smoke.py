@@ -188,6 +188,26 @@ Phases, one printed line each (or more):
     It raises on a fixture that differs, a frame more than 2 levels from
     the PNG on average, or a step that is not finite or does not launch
     K1 three times and K2 and K3 once each.
+21. phase 10's training step sharded over ranks (``set_parallel``,
+    ``data=1``: ① and ② on every rank, the rays split) on phase 3's scene
+    at the flagship widths and production caps, 3 frames a step: (i) two
+    gloo ranks sharing the card for 3 steps, each held against a
+    single-rank network given the same state and draws (info within 1e-5
+    relative, ray counts equal, the all-reduced gradients, the curves and
+    vertices within 1e-6 and the Adam-updated leaves as
+    ``tests/test_torch_train.py`` holds gradients and Adam updates;
+    ``sharded_vs_single``), the replicated
+    state the same bits on both ranks after each step, and K1,
+    K2 and K3 against their plain versions on rank 1's arguments from the
+    last step (the mesh z-buffers as in phase 8b, the composite forward as
+    in phase 8, the backward with a seeded upstream gradient as in phase
+    9: the one that reached rank 1 is zeros, its ② share weighing 0);
+    (ii) one NCCL world of
+    ``torch.cuda.device_count()`` ranks, one card each, for two steps (the
+    first a start-up step), and
+    ``parallel.dryrun.dryrun_multichip`` over NCCL. Each step's seconds by
+    host clock and its collectives' own milliseconds per rank, their count
+    and bytes, and the kernels' launches.
 
 A kernel's bound is the larger of the bytes it must move (each input
 read once: the listed candidates, the counts, the upstream gradient;
@@ -195,7 +215,7 @@ each output written once) over 3.35 TB/s and the operations the live
 pairs need over 67 TFLOP/s (H100 SXM float32, published peaks). Then a
 JSON line with each kernel's record (launches from the training run of
 phase 10, K1's with phases 16's and 19's added, all three with phases
-17's, 18's and 20's added;
+17's, 18's, 20's and 21's added, 21's summed over the ranks;
 error, times and bound from phases 8 and 12; no PyTorch call
 computes these functions, so ``library_ms`` is null), the card's name and
 power limit, and last ``{"ok": true, "device": {...}}``. Any failure
@@ -236,6 +256,8 @@ FS_STEPS = 2                           # phase 18: bench_fullstep's timed steps
 QUALITY_ARGS = ["--image", "128", "--frames", "4", "--steps", "12", "--init-epochs", "40"]
 HOT_ITERS = 3                          # phase 18: the hot step's timed iterations
 DECODE_REPS, INPUT_STEPS = 10, 2       # phase 20: timed reads per file, steps on the copy
+PAR_STEPS = 3                          # phase 21: data=1 steps of the two gloo ranks (then
+                                       # one data=2 step)
 FIXTURES = osp.join(ROOT, "tests", "torch_fixtures")
 SKINNER_RES = (129, 225, 65)
 
@@ -537,6 +559,34 @@ def scene_curves(garment_type: str) -> tuple:
     return rings, rings, rigid
 
 
+def smoke_net_on(dev, work: str, garment_type: str = "synthetic-tube"):
+    """The network of phases 4-4b on the scene generated under ``work``
+    (``work/scene``; the skinner from its cache in ``work/result`` where
+    one exists): the flagship widths, the coarse pyramid, the production
+    caps, the scene's curves, no remesh. Returns (dataset, sampler, net)."""
+    from recmv_tpu_torch.config import ConfigFactory
+    from recmv_tpu_torch.config.constants import TEMPLATE_GARMENT
+    from recmv_tpu_torch.core.builder import build_opt_net, resolution_pyramids, scene_caps
+    from recmv_tpu_torch.core.network import TrainConfig
+    from recmv_tpu_torch.data.dataset import get_dataset_and_loader
+    from recmv_tpu_torch.data.synthetic import shrink_garment_init
+
+    conf_name = {"synthetic-tube": "smoke.conf", "synthetic-two": "smoke_two.conf"}[garment_type]
+    conf = ConfigFactory.parse_file(osp.join(ROOT, "configs", "synthetic", conf_name))
+    G = len(TEMPLATE_GARMENT[garment_type])
+    ds, sampler = get_dataset_and_loader(osp.join(work, "scene"),
+                                         {"deformer": 128 * (1 + G), "render": 256}, 3,
+                                         shuffle=True, garment_type=garment_type,
+                                         data_type="synthe")
+    pyr = resolution_pyramids("coarse")
+    cfg = TrainConfig(**scene_caps((ds.W, ds.H), pyr))        # production caps, not the conf's
+    net = build_opt_net(conf, ds, osp.join(work, "result"), resolutions=pyr,
+                        skinner_res=SKINNER_RES, train_cfg=cfg, device=dev)
+    shrink_garment_init(net.params)
+    net.align_fl(*scene_curves(garment_type))
+    return ds, sampler, net
+
+
 def build_smoke_net(dev, work: str, garment_type: str = "synthetic-tube", frames=None,
                     image=None, phase: str | None = None):
     """Phases 3-5: generate the scene (``FRAMES`` frames at ``IMAGE``²
@@ -545,12 +595,7 @@ def build_smoke_net(dev, work: str, garment_type: str = "synthetic-tube", frames
     (dataset, sampler, net)."""
     import torch
 
-    from recmv_tpu_torch.config import ConfigFactory
-    from recmv_tpu_torch.config.constants import TEMPLATE_GARMENT
-    from recmv_tpu_torch.core.builder import build_opt_net, resolution_pyramids, scene_caps
-    from recmv_tpu_torch.core.network import TrainConfig
-    from recmv_tpu_torch.data.dataset import get_dataset_and_loader
-    from recmv_tpu_torch.data.synthetic import generate_scene, shrink_garment_init
+    from recmv_tpu_torch.data.synthetic import generate_scene
 
     frames, image = frames or FRAMES, image or IMAGE
     p3, p4, p5 = (phase,) * 3 if phase else ("3", "4", "5")
@@ -562,17 +607,8 @@ def build_smoke_net(dev, work: str, garment_type: str = "synthetic-tube", frames
         f"{time.time() - t0:.1f} s")
 
     t0 = time.time()
-    conf_name = {"synthetic-tube": "smoke.conf", "synthetic-two": "smoke_two.conf"}[garment_type]
-    conf = ConfigFactory.parse_file(osp.join(ROOT, "configs", "synthetic", conf_name))
-    G = len(TEMPLATE_GARMENT[garment_type])
-    ds, sampler = get_dataset_and_loader(scene, {"deformer": 128 * (1 + G), "render": 256}, 3,
-                                         shuffle=True, garment_type=garment_type,
-                                         data_type="synthe")
-    pyr = resolution_pyramids("coarse")
-    cfg = TrainConfig(**scene_caps((image, image), pyr))      # production caps, not the conf's
-    net = build_opt_net(conf, ds, osp.join(work, "result"), resolutions=pyr,
-                        skinner_res=SKINNER_RES, train_cfg=cfg, device=dev)
-    shrink_garment_init(net.params)
+    ds, sampler, net = smoke_net_on(dev, work, garment_type)
+    pyr, cfg = net.seg3d_cfg.resolutions, net.cfg
     n_par = sum(p.numel() for k in ("sdf", "garment_sdfs", "translator", "render")
                 for p in net.params[k].parameters())
     log(f"[{p4}] built the network in {time.time() - t0:.1f} s: {n_par} parameters, "
@@ -581,7 +617,7 @@ def build_smoke_net(dev, work: str, garment_type: str = "synthetic-tube", frames
         f"sample_pix {cfg.sample_pix}, solver {cfg.solver_times} steps, downscale mask "
         f"{cfg.mask_render_downscale} seed {cfg.seed_downscale} z-buffer {cfg.zbuf_downscale}, "
         f"fl_visible_method {net.conf.get_string('fl_visible_method')}")
-    _, statics = net.align_fl(*scene_curves(garment_type))
+    statics = net.curve_statics
     log(f"[{p4}b] curves {list(statics.fl_names)}, {statics.v_dirs.shape[1]} points each, "
         f"radii {[round(float(r), 4) for r in statics.init_scale.mean((1, 2))]}; body mesh "
         f"{net.tmp_body_vs.shape[0]} verts {net.tmp_body_fs.shape[0]} faces")
@@ -2048,6 +2084,320 @@ def branch_backward(net, ds, fids, dev) -> None:
         raise AssertionError("the mask branch's gradients differ between kernels and plain versions")
 
 
+def _state_digest(net) -> str:
+    import hashlib
+
+    h = hashlib.sha256()
+    for t in net.replicated_tensors():
+        h.update(t.detach().cpu().contiguous().numpy().tobytes())
+    return h.hexdigest()
+
+
+def _named_state(net) -> dict:
+    out = dict(net.global_leaves())
+    out.update({f"curves.{k}": v for k, v in net.params["curves"].items()})
+    out.update({f"verts.{i}": v for i, v in enumerate(net.mesh.garment_vs)})
+    return out
+
+
+def _copy_state(dst, src) -> None:
+    """``src``'s replicated state, mesh counts and step counters into
+    ``dst`` (the same layout), in place."""
+    import torch
+
+    with torch.no_grad():
+        for a, b in zip(dst.replicated_tensors(), src.replicated_tensors(), strict=True):
+            a.copy_(b)
+    for k in ("body_n", "garment_n", "garment_fn"):
+        setattr(dst.mesh, k, list(getattr(src.mesh, k)) if k != "body_n" else src.mesh.body_n)
+    dst.opt_times, dst._remeshed_at = src.opt_times, src._remeshed_at
+
+
+@contextlib.contextmanager
+def kept_gradients(net, store: dict):
+    """Keep in ``store`` the gradient of each global leaf (by name) that
+    the global Adam steps with, while the context lasts."""
+    opt = net.global_opt
+    step = opt.step
+    names = {id(p): k for k, p in net.global_leaves().items()}
+
+    def call(*args, **kwargs):
+        store.update({names[id(p)]: p.grad.detach().clone()
+                      for g in opt.param_groups for p in g["params"]})
+        return step(*args, **kwargs)
+
+    opt.step = call
+    try:
+        yield
+    finally:
+        opt.step = step
+
+
+def sharded_vs_single(net, ref, info, info_r, grads, grads_r) -> dict:
+    """Phase 21's check of a data=1 step (``net``, ``info``, the
+    gradients its Adam took) against the single-rank step from the same
+    state on the same draws (``ref``, ...): every info scalar within 1e-5
+    relative and 1e-7 absolute, the ray counts equal; each leaf's
+    all-reduced gradient as ``tests/test_torch_train.py`` holds leaf
+    gradients: ‖Δg‖ ≤ tol·‖g‖ + 1e-6, tol 1e-2 where the gradient passes
+    the bf16 translator (its weights and the deformer latents; each rank
+    rounds its share of the translator's weight gradients apart), else
+    1e-4; the curves and the vertices within 1e-6 (① and ② run whole on
+    every rank); the Adam-updated leaves as that file holds Adam updates:
+    within 2e-2 of lr where the gradient is above 1e-3 of the leaf's
+    largest, everywhere within 2·lr (a step moves an entry by
+    lr·m̂/(√v̂ + 1e-8), so a near-zero gradient whose sign flips moves it
+    by up to 2·lr). Returns the largest errors, the info scalars' as
+    |Δ| / (1e-5·|v| + 1e-7) and the gradients' as ‖Δg‖ / (tol·‖g‖ +
+    1e-6), each a share of its bound; raises past a bound."""
+    lr = float(ref.global_opt.param_groups[0]["lr"]) * ref._lr_scale
+    rel = {k: abs(info[k] - v) / (1e-5 * abs(v) + 1e-7) for k, v in info_r.items()}
+    counts = [k for k in info_r if k.endswith(("_rayConv", "_rayBudget")) and info[k] != info_r[k]]
+    g_err = {}
+    for k, g in grads_r.items():
+        tol = 1e-2 if k.startswith(("translator", "scene.conds.deformer")) else 1e-4
+        g_err[k] = (grads[k] - g).norm().item() / (tol * g.norm().item() + 1e-6)
+    got, want = _named_state(net), _named_state(ref)
+    p_err, bad = {}, []
+    for k, w in want.items():
+        d = (got[k].detach() - w.detach()).abs()
+        p_err[k] = d.max().item()
+        if k in grads_r:
+            g = grads_r[k].abs()
+            stable = g > 1e-3 * g.max()
+            if (stable.any() and d[stable].max().item() > 2e-2 * lr) or p_err[k] > 2 * lr * 1.001:
+                bad.append(k)
+        elif p_err[k] > 1e-6:
+            bad.append(k)
+    g_bad = [k for k, e in g_err.items() if e > 1.0]
+    out = dict(info_err_max=max(rel.values()), info_err_where=max(rel, key=rel.get),
+               grad_err_max=max(g_err.values()), grad_err_where=max(g_err, key=g_err.get),
+               param_err_max=max(p_err.values()), param_err_where=max(p_err, key=p_err.get))
+    if set(info) != set(info_r) or out["info_err_max"] > 1.0 or counts or g_bad or bad:
+        raise AssertionError(f"the sharded step differs from the single-rank step: info {rel}, "
+                             f"counts {counts}, gradients {g_bad} {g_err}, parameters {bad} "
+                             f"{p_err}")
+    return out
+
+
+def split_vs_single(info, info_r, loss, loss_r) -> dict:
+    """Phase 21's check of a data=2 step (``info``, ``loss``) against the
+    single-rank step from the same state on the same draws, at
+    ``tests/test_parallel.py``'s tolerances for the JAX package's step
+    sharded over data=2 against one device: ① and ② (``fl_loss_total``,
+    ``pc_loss_total``, each garment's project and mask loss) within
+    1e-4·max(|v|, 1), converged rays within max(2, 10%), budgets equal,
+    the loss within 2e-2·max(|loss|, 1). On the card the frame split is
+    not exact where data=1 is: each rank deforms its own block of frames,
+    a GEMM of another row count than the single rank's, which cuBLAS may
+    round apart, so a seed at a triangle's edge can flip and the per-ray
+    terms move with it (``parallel_rank`` counts the seeds that differ).
+    Returns the largest errors as shares of their bounds; raises past
+    one."""
+    branch = [k for k in info_r if k in ("fl_loss_total", "pc_loss_total")
+              or k.endswith(("_project_loss", "_mask_loss"))]
+    err = {k: abs(info[k] - info_r[k]) / (1e-4 * max(abs(info_r[k]), 1.0)) for k in branch}
+    for k, v in info_r.items():
+        if k.endswith("_rayConv"):
+            err[k] = abs(info[k] - v) / max(2, 0.1 * v)
+        if k.endswith("_rayBudget"):
+            err[k] = float("inf") if info[k] != v else 0.0
+    err["loss"] = abs(loss - loss_r) / (2e-2 * max(abs(loss_r), 1.0))
+    out = dict(split_err_max=max(err.values()), split_err_where=max(err, key=err.get))
+    if set(info) != set(info_r) or out["split_err_max"] > 1.0:
+        raise AssertionError(f"the data=2 step differs from the single-rank step: {err}")
+    return out
+
+
+@contextlib.contextmanager
+def kept_seeds(net, store: list):
+    """Keep in ``store`` each seeding result of ``net`` while the context
+    lasts."""
+    fn = net.find_and_sample_rays
+
+    def call(*args, **kwargs):
+        out = fn(*args, **kwargs)
+        store.append(out)
+        return out
+
+    net.find_and_sample_rays = call
+    try:
+        yield
+    finally:
+        del net.find_and_sample_rays
+
+
+def seeds_differing(seeds, seeds_r) -> tuple:
+    """(seeds of this rank's share that differ from the single rank's
+    selection at the same rows, the share's size), over the garments."""
+    n_diff = n_all = 0
+    for sd, sr in zip(seeds, seeds_r):
+        first, n_real, _ = sd["span"]
+        same = [sd[k][:n_real] == sr[k][first:first + n_real]
+                for k in ("batch_inds", "rows", "cols", "valid")]
+        n_diff += int((~(same[0] & same[1] & same[2] & same[3])).sum())
+        n_all += n_real
+    return n_diff, n_all
+
+
+def parallel_rank(rank: int, work: str, steps: int, backend: str) -> dict:
+    """Phase 21, one rank: phase 4's network on phase 3's scene over the
+    mesh (``data=1``; gloo ranks share ``cuda:0``, an NCCL rank has its own
+    card), the remesh rank 0 broadcasts, then ``steps`` sharded training
+    steps of 3 frames and, with gloo, one more over ``data=2`` (frame
+    blocks of 2 and 1, one on each rank), with draws from a seeded
+    generator, each timed by host clock with its collectives' own
+    milliseconds and its kernel launches counted. With gloo, rank 0 holds
+    each step against a single-rank network given the same state before
+    the step and the same draws (``sharded_vs_single``; the data=2 step
+    by ``split_vs_single``) and counts the seeds of its share that differ
+    from the single rank's, and rank 1
+    records the data=2 step's K1, K2 and K3 arguments (its ② share, whose
+    upstream gradient reaches K3) and holds each kernel against its plain
+    version on them. Returns the steps' records (data, info, digest of the
+    replicated state, times, launches) and, on rank 1, the kernels'
+    results."""
+    import numpy as np
+    import torch
+
+    from recmv_tpu_torch.ops import rasterizer
+    from recmv_tpu_torch.ops.composite import composite_tiles, composite_tiles_bwd
+    from recmv_tpu_torch.ops.mesh_raster import mesh_tiles
+    from recmv_tpu_torch.parallel import make_mesh
+
+    tag = f"21 {backend} r{rank}"
+    device = "cuda:0" if backend == "gloo" else None
+    meshes = [make_mesh(device=device)] * steps
+    if backend == "gloo":
+        meshes.append(make_mesh(data=2, device=device))
+    ds, _, net = smoke_net_on(meshes[0].device, work)
+    net.set_parallel(meshes[0])
+    net.marching_cube_update(RATIO)
+    ref = None
+    if backend == "gloo" and rank == 0:
+        _, _, ref = smoke_net_on(net.device, work)
+        ref.marching_cube_update(RATIO)
+    record = backend == "gloo" and rank == 1
+    kernels = {"mesh_tiles": mesh_tiles, "composite_tiles": composite_tiles,
+               "composite_tiles_bwd": composite_tiles_bwd}
+    batches = np.random.RandomState(21).permutation(ds.frame_num)[:3 * len(meshes)]
+    store, k1_calls, out = {}, [], {"steps": []}
+    for step, (fids, mesh) in enumerate(zip(batches.reshape(-1, 3).tolist(), meshes)):
+        data = mesh.shape["data"]
+        if mesh is not net.pmesh:
+            net.set_parallel(mesh)
+        batch = ds.get_batch(fids)
+        if ref is not None:
+            _copy_state(ref, net)
+        rec_ctx = (rasterizer_kernels(recording(composite_tiles, store, "composite_tiles"),
+                                      recording_calls(rasterizer.mesh_tiles, k1_calls))
+                   if record and data > 1 else contextlib.nullcontext())
+        mesh.all_reduce(torch.zeros(1, device=mesh.device))   # start together
+        for fn in kernels.values():
+            fn.launches = 0
+        mesh.reset_comm()
+        mesh.timed = True
+        torch.cuda.synchronize()
+        t0 = time.time()
+        grads, grads_r, seeds, seeds_r = {}, {}, [], []
+        with rec_ctx, kept_gradients(net, grads), kept_seeds(net, seeds):
+            loss, info = net.train_step(batch, fids, RATIO, generator=torch.Generator(
+                device=mesh.device).manual_seed(2100 + step))
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+        mesh.timed = False
+        rec = dict(fids=fids, data=data, wall=wall, comm_ms=mesh.comm["seconds"] * 1e3,
+                   comm_calls=mesh.comm["calls"], comm_bytes=mesh.comm["bytes"], info=info,
+                   digest=_state_digest(net),
+                   launches={n: fn.launches for n, fn in kernels.items()})
+        bad = [k for k, v in info.items() if not math.isfinite(v)]
+        if bad or info["tube_rayConv"] < 1 or min(rec["launches"].values()) < 1:
+            raise AssertionError(f"[{tag}] step {step}: non-finite {bad}, converged rays "
+                                 f"{info['tube_rayConv']}, launches {rec['launches']}")
+        if ref is not None:
+            with kept_gradients(ref, grads_r), kept_seeds(ref, seeds_r):
+                loss_r, info_r = ref.train_step(batch, fids, RATIO, generator=torch.Generator(
+                    device=mesh.device).manual_seed(2100 + step))
+            n_diff, n_all = seeds_differing(seeds[0], seeds_r[0])
+            if data == 1:
+                rec.update(sharded_vs_single(net, ref, info, info_r, grads, grads_r))
+                log(f"[{tag}] step {step} (data=1): against the single-rank step, info at "
+                    f"{rec['info_err_max']:.3f} of its bound ({rec['info_err_where']}), gradients "
+                    f"at {rec['grad_err_max']:.3f} of their bound ({rec['grad_err_where']}), "
+                    f"parameters max abs {rec['param_err_max']:.3e} "
+                    f"({rec['param_err_where']}), ray counts equal, seeds differing {n_diff} of "
+                    f"{n_all}")
+            else:
+                rec.update(split_vs_single(info, info_r, loss, loss_r))
+                rel = {k: abs(info[k] - v) / max(abs(v), 1e-12) for k, v in info_r.items()}
+                log(f"[{tag}] step {step} (data={data}): against the single-rank step at the "
+                    f"JAX parity test's bounds, at {rec['split_err_max']:.3f} of them "
+                    f"({rec['split_err_where']}); seeds of this rank's share differing "
+                    f"{n_diff} of {n_all}; info relative differences "
+                    f"{json.dumps({k: float(f'{v:.2e}') for k, v in rel.items()})}")
+        log(f"[{tag}] sharded step {step} (data={data}) frames {fids} wall {wall:.4f} s "
+            f"collectives {rec['comm_calls']} ({rec['comm_bytes']} bytes) {rec['comm_ms']:.3f} "
+            f"ms loss {loss:.6f} converged rays {info['tube_rayConv']:.0f} launches "
+            f"{json.dumps(rec['launches'])}")
+        out["steps"].append(rec)
+    if record:
+        compare_zbuffers(net, k1_calls, tag, seeding=True)
+        fwd = store["composite_tiles"]
+        g = store["composite_tiles.grad"]
+        if not g.abs().max().item() > 0:
+            raise AssertionError(f"[{tag}] no upstream gradient reached K3 in the data=2 step")
+        out["kernels"] = {
+            "composite_tiles": compare_composite_tiles(tag, fwd),
+            "composite_tiles_bwd": compare_composite_bwd(
+                tag, fwd + (g.contiguous(), fwd[3].requires_grad))}
+    return out
+
+
+def parallel_run(work: str) -> dict:
+    """Phase 21: phase 10's training step sharded over ranks on phase 3's
+    scene (``parallel_rank``): (i) two gloo ranks on the one card for
+    ``PAR_STEPS`` steps over data=1 and one over data=2, each held against
+    the single-rank step, the replicated state the same bits on both ranks
+    after each step, K1-K3 against their plain versions on rank 1's
+    arguments; (ii) one NCCL
+    world of ``torch.cuda.device_count()`` ranks for two steps. Prints each
+    step's seconds and collective milliseconds per rank; then the NCCL dry
+    run. Returns the kernels' launches in the sharded steps, summed over
+    ranks."""
+    import torch
+
+    from recmv_tpu_torch.parallel import spawn
+    from recmv_tpu_torch.parallel.dryrun import dryrun_multichip
+
+    t_phase = time.time()
+    launches = {"mesh_tiles": 0, "composite_tiles": 0, "composite_tiles_bwd": 0}
+    runs = {"gloo": spawn(parallel_rank, 2, "gloo", args=(work, PAR_STEPS, "gloo"))}
+    n_cards = torch.cuda.device_count()
+    runs["nccl"] = spawn(parallel_rank, n_cards, "nccl", args=(work, 2, "nccl"))
+    for backend, ranks in runs.items():
+        for step in range(len(ranks[0]["steps"])):
+            recs = [r["steps"][step] for r in ranks]
+            if len({r["digest"] for r in recs}) != 1 or any(r["info"] != recs[0]["info"]
+                                                            for r in recs):
+                raise AssertionError(f"[21] {backend} step {step}: the ranks' replicated "
+                                     f"state or info differ")
+            for r in recs:
+                for n, c in r["launches"].items():
+                    launches[n] += c
+            log(f"[21] {backend} {len(ranks)} rank(s) step {step} (data={recs[0]['data']}): "
+                f"wall per rank "
+                f"{[round(r['wall'], 4) for r in recs]} s, collectives per rank "
+                f"{[round(r['comm_ms'], 3) for r in recs]} ms ({recs[0]['comm_calls']} calls, "
+                f"{recs[0]['comm_bytes']} bytes), replicated state the same bits on every rank")
+    t0 = time.time()
+    dry = dryrun_multichip(n_cards, "nccl")
+    log(f"[21] dryrun_multichip({n_cards}, nccl): loss {dry['loss']:.6f} in "
+        f"{time.time() - t0:.1f} s")
+    log(f"[21] sharded steps' launches (all ranks) {json.dumps(launches)}; phase 21 ran "
+        f"{time.time() - t_phase:.1f} s ({card_line()})")
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -2075,7 +2425,8 @@ def main() -> int:
 
     check_kernels(dev)
     check_backward_kernel(dev)
-    ds, sampler, net = build_smoke_net(dev, tempfile.mkdtemp(prefix="recmv_chip_smoke_"))
+    smoke_work = tempfile.mkdtemp(prefix="recmv_chip_smoke_")
+    ds, sampler, net = build_smoke_net(dev, smoke_work)
 
     batches = []
     while len(batches) < 3 + TRAIN_STEPS:
@@ -2186,6 +2537,11 @@ def main() -> int:
     # package; its launches count
     for n, c in scene_inputs_run(dev, scene,
                                  tempfile.mkdtemp(prefix="recmv_chip_smoke_inputs_")).items():
+        launches[n] += c
+    torch.cuda.empty_cache()
+
+    # phase 21: phase 10's step sharded over ranks; its launches count
+    for n, c in parallel_run(smoke_work).items():
         launches[n] += c
 
     sources = {"mesh_tiles": ("recmv_tpu_torch/csrc/mesh_raster.cu",

@@ -21,9 +21,11 @@ def masked_mean(x, mask, dim=None, eps: float = 1e-9):
     return torch.sum(x * mask, dim) / torch.clamp(torch.sum(mask, dim), min=eps)
 
 
-def iou_mask_loss(pred_masks, gt_masks, keep=None):
+def iou_mask_loss(pred_masks, gt_masks, keep=None, n_frames=None):
     """1 − IoU between soft predicted and pooled gt masks, per frame, then
-    the mean. ``keep`` (1 = score, 0 = don't care) gates pixels."""
+    their sum over ``n_frames`` (by default the frames given; a rank's
+    share of a batch whose frames lie on several ranks passes the
+    batch's). ``keep`` (1 = score, 0 = don't care) gates pixels."""
     N = gt_masks.shape[0]
     p = pred_masks.reshape(N, -1)
     g = gt_masks.reshape(N, -1)
@@ -33,7 +35,8 @@ def iou_mask_loss(pred_masks, gt_masks, keep=None):
         g = g * k
     inter = torch.sum(p * g, -1)
     union = torch.sum(torch.abs(p + g - p * g), -1)
-    return torch.mean(1.0 - inter / torch.clamp(union, min=1e-9))
+    per_frame = 1.0 - inter / torch.clamp(union, min=1e-9)
+    return torch.sum(per_frame) / (N if n_frames is None else n_frames)
 
 
 def max_pool_mask(mask, radius_px: int):
@@ -52,22 +55,41 @@ def point_render_radius_px(radius_ndc: float, H: int, W: int) -> int:
     return int(np.round(radius_ndc / 2.0 * float(min(H, W)) / 1.2))
 
 
-def per_frame_scatter_mean(values, batch_inds, valid, N):
-    """Mean per frame (scatter), then the mean over frames that have any."""
+def _local(counts):
+    return counts
+
+
+def per_frame_scatter_mean(values, batch_inds, valid, N, reduce=_local):
+    """Mean per frame (scatter), then the mean over frames that have any,
+    each frame's sum over ``reduce`` of the detached counts per frame: by
+    default the counts of the values given; a rank's share of a batch
+    whose values lie on several ranks sums every rank's."""
     w = valid.to(values.dtype)
     sums = torch.zeros(N, dtype=values.dtype, device=values.device).index_add(
         0, batch_inds, values * w)
     cnts = torch.zeros(N, dtype=values.dtype, device=values.device).index_add(
         0, batch_inds, w)
+    cnts = reduce(cnts.detach())
     present = cnts > 0
     frame_means = torch.where(present, sums / torch.clamp(cnts, min=1e-9), 0.0)
     return torch.sum(frame_means) / torch.clamp(torch.sum(present), min=1.0)
 
 
-def color_loss(pred_rgb, gt_rgb, batch_inds, valid, N):
+def color_loss(pred_rgb, gt_rgb, batch_inds, valid, N, reduce=_local):
     """L1 colour loss summed over channels, per-frame mean."""
     vals = torch.sum(torch.abs(gt_rgb - pred_rgb), -1)
-    return per_frame_scatter_mean(vals, batch_inds, valid, N)
+    return per_frame_scatter_mean(vals, batch_inds, valid, N, reduce)
+
+
+def _mean(vals, valid, total):
+    """Σ vals over ``valid`` / ``total``: by default the count of the
+    entries given (``masked_mean``'s); a rank's share of a mean whose
+    entries lie on several ranks passes every rank's."""
+    if valid is not None:
+        w = valid.to(vals.dtype)
+        vals = vals * w
+        total = torch.clamp(torch.sum(w), min=1e-9) if total is None else total
+    return torch.sum(vals) / (vals.numel() if total is None else total)
 
 
 def sdf_shrink_loss(sdf_vals, shrink: float, valid=None):
@@ -77,10 +99,9 @@ def sdf_shrink_loss(sdf_vals, shrink: float, valid=None):
     return torch.mean(vals) if valid is None else masked_mean(vals, valid)
 
 
-def eikonal_loss(grads, valid=None):
-    """(‖∇sdf‖ − 1)², mean over ``valid``."""
-    vals = (torch.linalg.norm(grads, dim=-1) - 1.0) ** 2
-    return torch.mean(vals) if valid is None else masked_mean(vals, valid)
+def eikonal_loss(grads, valid=None, total=None):
+    """(‖∇sdf‖ − 1)², mean over ``valid`` (``_mean``, ``total``)."""
+    return _mean((torch.linalg.norm(grads, dim=-1) - 1.0) ** 2, valid, total)
 
 
 def igr_init_loss(sdf_vals_surface, grads_surface, grads_offsurface, normals=None):
@@ -120,22 +141,23 @@ def sym3x3_eigvalsh(A):
     return torch.stack([e_lo, e_mid, e_hi], dim=-1)
 
 
-def def_regularization_loss(jacobians, c: float, valid=None):
+def def_regularization_loss(jacobians, c: float, valid=None, total=None):
     """Rigidity prior on the offset field: Geman-McClure of Σ log²σᵢ over
     each Jacobian's singular values, σᵢ² the eigenvalues of JᵀJ. A
     diagonal jitter of (1, 2, 3)·1e-6 times the mean eigenvalue keeps them
-    distinct (JᵀJ ≈ I at the near-identity init)."""
+    distinct (JᵀJ ≈ I at the near-identity init). The mean over ``valid``
+    (``_mean``, ``total``)."""
     JtJ = torch.einsum("mji,mjk->mik", jacobians, jacobians)
     scale = torch.diagonal(JtJ, dim1=-2, dim2=-1).sum(-1)[..., None, None] / 3.0 + 1e-12
     jitter = torch.diag(torch.tensor([1.0, 2.0, 3.0], device=JtJ.device)) * 1e-6
     eig = sym3x3_eigvalsh(JtJ + jitter * scale)
     logs = 0.5 * torch.log(torch.clamp(eig, min=1e-12))
-    vals = gm_robust_error(torch.sum(logs * logs, -1), c)
-    return torch.mean(vals) if valid is None else masked_mean(vals, valid)
+    return _mean(gm_robust_error(torch.sum(logs * logs, -1), c), valid, total)
 
 
 def normal_pullback_loss(gt_normals_img, jacobians, sdf_normals, rays, cam_R, batch_inds,
-                         valid, N, weighted: bool = True, deformed_normals=None):
+                         valid, N, weighted: bool = True, deformed_normals=None,
+                         reduce=_local):
     """Normal supervision: the gt screen-space normal → world through
     R·diag(−1, 1, −1) → canonical through Jᵀ, against the canonical SDF
     normal; weighted by (−ray·n̂_deformed)² when ``weighted``. Per-frame
@@ -151,7 +173,7 @@ def normal_pullback_loss(gt_normals_img, jacobians, sdf_normals, rays, cam_R, ba
     else:
         w = torch.ones_like(gtn[:, 0])
     vals = torch.linalg.norm(gtn_cano - sdf_normals, dim=-1) * w
-    return per_frame_scatter_mean(vals, batch_inds, valid & has_gt, N)
+    return per_frame_scatter_mean(vals, batch_inds, valid & has_gt, N, reduce)
 
 
 def dct_pose_loss(dct_null, posed_joints_windows):

@@ -57,6 +57,7 @@ from ..ops.marching_cubes import marching_cubes
 from ..ops.math3d import dct_null_space, gm_robust_error
 from ..ops.rasterizer import composite_points, find_surface_points, rasterize_mesh, screen_with_cam_z
 from ..ops.seg3d import Seg3dConfig, final_grid_spacing, seg3d_forward
+from ..parallel.mesh import broadcast_tensors, frame_share, ray_share, shard_rays
 from ..utils.checkpoint import read_checkpoint, write_checkpoint
 from ..utils.profiling import count_flops
 from . import losses as L
@@ -162,6 +163,7 @@ class GarmentOptimNetwork:
         self._init_global_opt()
         self.vert_opt = None
         self._lr_scale = 1.0
+        self.pmesh = None                   # the rank mesh of set_parallel
 
     # ------------------------------------------------------------------
     # parameters and optimizers
@@ -327,7 +329,18 @@ class GarmentOptimNetwork:
         ``marching_cube_update_host``): the body again too, the host
         marching cubes (that path's vertex order) and its buffers at 2^22
         vertices and 2^23 faces in place of ``mc_capacity_v``/``_f``. The
-        vertex SGD and, where curves exist, the curve AdamW start afresh."""
+        vertex SGD and, where curves exist, the curve AdamW start afresh.
+        On a mesh (``set_parallel``) rank 0 extracts and broadcasts."""
+        if self.pmesh is None or self.pmesh.rank == 0:
+            self._extract_mesh(ratio, higher)
+        if self.pmesh is not None:
+            self._broadcast_mesh()
+        self._remeshed_at = self.opt_times
+        self.reset_vertex_optimizer()
+        if self.params.get("curves"):
+            self.reset_curve_optimizer()
+
+    def _extract_mesh(self, ratio, higher: bool):
         max_verts, max_faces = ((1 << 22, 1 << 23) if higher else
                                 (self.cfg.mc_capacity_v, self.cfg.mc_capacity_f))
         fresh_body = higher or self.mesh is None
@@ -359,10 +372,81 @@ class GarmentOptimNetwork:
             body_n=body_n,
             garment_vs=[p[0] for p in padded], garment_fs=[p[1] for p in padded],
             garment_n=[len(g[0]) for g in garments], garment_fn=[len(g[1]) for g in garments])
-        self._remeshed_at = self.opt_times
-        self.reset_vertex_optimizer()
+
+    def _broadcast_mesh(self):
+        """Rank 0's mesh state on every rank: its counts and buffer sizes
+        first, then the buffers (the other ranks' are made anew)."""
+        G = self.statics.garment_size
+        m = self.mesh
+        head = torch.zeros(1 + 4 * G, dtype=torch.int64, device=self.pmesh.device)
+        if self.pmesh.rank == 0:
+            head.copy_(torch.tensor([m.body_n] + m.garment_n + m.garment_fn
+                                    + [v.shape[0] for v in m.garment_vs]
+                                    + [f.shape[0] for f in m.garment_fs]))
+        h = self.pmesh.broadcast(head).tolist()
+        if self.pmesh.rank != 0:
+            self.mesh = m = MeshState(
+                body_n=h[0], garment_n=h[1:1 + G], garment_fn=h[1 + G:1 + 2 * G],
+                garment_vs=[torch.zeros(c, 3, device=self.device) for c in h[1 + 2 * G:1 + 3 * G]],
+                garment_fs=[torch.zeros(c, 3, dtype=torch.int64, device=self.device)
+                            for c in h[1 + 3 * G:]])
+        broadcast_tensors(self.pmesh, m.garment_vs + m.garment_fs, "the mesh buffers")
+
+    # ------------------------------------------------------------------
+    # several ranks
+    # ------------------------------------------------------------------
+
+    def set_parallel(self, mesh):
+        """Make ``train_step`` one rank's part of a step over ``mesh``
+        (``parallel.make_mesh``: one process per rank, the network built
+        the same way on every rank): frames over 'data', rays over every
+        rank, parameters replicated (``train_step``). The replicated state
+        is broadcast from rank 0 here, and again after each
+        ``marching_cube_update`` (rank 0 extracts) and ``load_checkpoint``.
+        Raises where the mesh's backend cannot reduce this network's
+        tensors or its rank device is another. None returns to one
+        device."""
+        if mesh is not None:
+            mesh.check_device(self.device)
+        self.pmesh = mesh
+        if mesh is not None:
+            self.broadcast_state()
+
+    def replicated_tensors(self) -> list:
+        """The state every rank holds the same, in a fixed order: the global
+        leaves, the curve leaves and statics, the three optimizers' state
+        tensors, the garment buffers and ①'s body mesh."""
+        out = list(self.global_leaves().values())
         if self.params.get("curves"):
-            self.reset_curve_optimizer()
+            out += self.curve_leaves()
+        if self.curve_statics is not None:
+            out += [getattr(self.curve_statics, k) for k in bridge.CURVE_FIELDS]
+        for opt in (self.global_opt, self.curve_opt, self.vert_opt):
+            for group in (opt.param_groups if opt is not None else []):
+                for p in group["params"]:
+                    st = opt.state.get(p, {})
+                    out += [st[k] for k in sorted(st) if torch.is_tensor(st[k])]
+        if self.mesh is not None:
+            out += self.mesh.garment_vs + self.mesh.garment_fs
+        return out + [t for t in (self.tmp_body_vs, self.tmp_body_fs) if t is not None]
+
+    def broadcast_state(self):
+        """Rank 0's replicated state (``replicated_tensors``, the mesh's
+        counts and the step counters) on every rank; raises on every rank
+        where any rank holds a state of another layout."""
+        m = self.mesh
+        host = torch.tensor([self.opt_times, self._remeshed_at, self._lr_scale, float(self.isfine)]
+                            + ([] if m is None else [m.body_n] + m.garment_n + m.garment_fn),
+                            dtype=torch.float64, device=self.device)
+        broadcast_tensors(self.pmesh, self.replicated_tensors() + [host])
+        h = host.tolist()
+        self.opt_times, self._remeshed_at, self._lr_scale, self.isfine = (
+            h[0], h[1], h[2], bool(h[3]))
+        if m is not None:
+            G = self.statics.garment_size
+            m.body_n = int(h[4])
+            m.garment_n = [int(x) for x in h[5:5 + G]]
+            m.garment_fn = [int(x) for x in h[5 + G:]]
 
     def reset_vertex_optimizer(self):
         """SGD(0.05, momentum 0.9) over the mesh vertex buffers, which equals
@@ -455,7 +539,7 @@ class GarmentOptimNetwork:
         return V.sample_zbuf(zbuf, screen_pts, self.statics.image_size)
 
     def fl_branch_loss(self, curve_params, frame_ids, fl_pts, fl_masks, ratio,
-                       garment_vs_t=None, garment_fs_t=None):
+                       garment_vs_t=None, garment_fs_t=None, share=None):
         """①: per garment and curve, the deformed curve's 2D chamfer against
         the gt polyline on the points that pass the visibility gate of
         ``fl_visible_method`` (weighted per curve, averaged over the frames
@@ -463,7 +547,15 @@ class GarmentOptimNetwork:
         regularizers, and the canonical curves anchored to the garment SDF
         (f32). The gates carry no gradient; the garment z-buffer needs the
         mesh buffers ``garment_vs_t``/``garment_fs_t``. Returns
-        (10·sdf + projection, info)."""
+        (10·sdf + projection, info).
+
+        With a ``share`` (``parallel.frame_share``) on a mesh, the frames
+        given are the rank's block and the result is the rank's share of
+        the batch's loss: the chamfer sums of its block, weighed by the
+        share's weight, over the frame and point counts of every rank (one
+        all-reduce), and the terms that are not per frame (the SDF
+        anchoring, the regularizers) on rank 0 alone."""
+        share = share or frame_share(frame_ids.shape[0], None)
         cam = self._camera()
         N = frame_ids.shape[0]
         r = _ratio_dict(ratio)
@@ -487,9 +579,12 @@ class GarmentOptimNetwork:
         proj_loss = 0.0
         fl_sdf_loss = 0.0
         S = curves.shape[1]
+        terms = []            # per curve: (garment, weight, chamfer sum, valid frames, points)
+        n_curves = []
 
         for gi, gname in enumerate(self.statics.garment_names):
             fl_names = [n for n in FL_EXTRACT[gname] if n in name_to_idx]
+            n_curves.append(len(fl_names))
             gsdf = self.params["garment_sdfs"][gi]
             deform = make_deform_fn(self.params, conds[gi + 1], poses, trans, r["deformerRatio"])
             g_zbuf = None
@@ -501,7 +596,6 @@ class GarmentOptimNetwork:
                                                tile=self.cfg.raster_tile,
                                                cap=self.cfg.raster_cap_mesh,
                                                downscale=self.cfg.zbuf_downscale)
-            g_proj = 0.0
             for cname in fl_names:
                 ci = name_to_idx[cname]
                 cv = curves[ci]                                    # (S, 3)
@@ -546,19 +640,31 @@ class GarmentOptimNetwork:
                      + torch.where(any_v, min_pg.sum(1), 0.0))
                 chams = torch.where(any_v, s, 0.0)
                 valid_frames = (pred_valid.sum(-1) > 0).to(torch.float32).sum()
-                batch_loss = w_curve * chams.sum() / torch.clamp(valid_frames, min=1.0)
                 n_vis = pred_valid.to(torch.float32).sum()
-                g_proj = g_proj + batch_loss / torch.clamp(n_vis, min=1.0)
-            g_proj = g_proj / max(len(fl_names), 1) * fl_w
-            info[f"{gname}_project_loss"] = g_proj
-            proj_loss = proj_loss + g_proj
+                terms.append((gi, w_curve, chams.sum(), valid_frames, n_vis))
 
-            cano_fl = torch.cat([curves[name_to_idx[n]] for n in fl_names], 0)
-            s_loss = (sdf_value(gsdf, cano_fl, r["sdfRatio"]) + self.sdf_shrink).abs().mean()
+            if share.root:
+                cano_fl = torch.cat([curves[name_to_idx[n]] for n in fl_names], 0)
+                s_loss = (sdf_value(gsdf, cano_fl, r["sdfRatio"]) + self.sdf_shrink).abs().mean()
+            else:
+                s_loss = 0.0
             info[f"fl_pc_{gname}_loss_sdf"] = s_loss
             fl_sdf_loss = fl_sdf_loss + s_loss * sdf_w
 
-        reg = curves_regularization(curve_params, cs, fl_masks)
+        counts = iter(share.count([c for t in terms for c in t[3:]]))
+        g_proj = [0.0] * len(self.statics.garment_names)
+        for (gi, w_curve, cham_sum, _, _), valid_frames, n_vis in zip(terms, counts, counts):
+            batch_loss = w_curve * cham_sum / torch.clamp(valid_frames, min=1.0)
+            g_proj[gi] = g_proj[gi] + batch_loss / torch.clamp(n_vis, min=1.0)
+        for gi, gname in enumerate(self.statics.garment_names):
+            g = g_proj[gi] / max(n_curves[gi], 1) * fl_w * share.weight
+            info[f"{gname}_project_loss"] = g
+            proj_loss = proj_loss + g
+
+        if share.root:
+            reg = curves_regularization(curve_params, cs, fl_masks)
+        else:
+            reg = dict.fromkeys(("center_offset", "diff_a_loss"), 0.0)
         center_w = float(self.conf.get_float("alpha_weight.center_weight", 1.0))
         diff_w = float(self.conf.get_float("alpha_weight.diff_weight", 1.0))
         proj_loss = proj_loss + reg["center_offset"] * center_w + reg["diff_a_loss"] * diff_w
@@ -571,13 +677,18 @@ class GarmentOptimNetwork:
     # ------------------------------------------------------------------
 
     def pc_branch_loss(self, garment_vs, frame_ids, gt_garment_masks, ratio, counts,
-                       body_mask=None):
+                       body_mask=None, share=None):
         """Render every garment's soft mask in one point-splat composite
         (section one-hots as feature channels) and score 1 − IoU against
         the radius-dilated gt masks, plus the deformation-consistency
         term. With ``pc_weight.occlusion_gate`` > 0 and a ``body_mask``
         (N, H, W), body pixels outside a dilated gt mask are not scored.
-        Returns (loss, (info, masks (N, G, Hm, Wm), deformed verts))."""
+        Returns (loss, (info, masks (N, G, Hm, Wm), deformed verts)).
+
+        With a ``share`` on a mesh, the frames given are the rank's block
+        and the loss and info are its share (sums over its frames over the
+        batch's frame count, times the share's weight)."""
+        share = share or frame_share(frame_ids.shape[0], None)
         cam = self._camera()
         W, H = self.statics.image_size
         radius = self.cfg.point_radius
@@ -627,7 +738,7 @@ class GarmentOptimNetwork:
         total = 0.0
         info = {}
         for gi, gname in enumerate(self.statics.garment_names):
-            m_loss = L.iou_mask_loss(masks[:, gi], *mgt_list[gi])
+            m_loss = L.iou_mask_loss(masks[:, gi], *mgt_list[gi], n_frames=share.n) * share.weight
             info[f"{gname}_mask_loss"] = m_loss
             total = total + m_loss * float(self.conf.get_float("pc_weight.mask_weight", 1.0))
             if need_cons:
@@ -640,6 +751,7 @@ class GarmentOptimNetwork:
                     cons = L.masked_mean(gm_robust_error(off2, c), vmask)
                 else:
                     cons = L.masked_mean(torch.sqrt(off2 + 1e-12), vmask)
+                cons = cons * share.weight
                 info[f"{gname}_defconst_loss"] = cons
                 total = total + cons * cw
         return total, (info, masks, def_vs)
@@ -649,24 +761,37 @@ class GarmentOptimNetwork:
     # ------------------------------------------------------------------
 
     def find_and_sample_rays(self, frame_ids, gt_garment_masks, ratio, garment_vs,
-                             garment_fs, def_vs=None, generator=None, uniforms=None):
+                             garment_fs, def_vs=None, generator=None, uniforms=None,
+                             share=None):
         """Rasterize the deformed garment meshes at 1/seed_downscale
         resolution, take first-hit canonical seeds at pixels inside the gt
         garment mask, and keep a fixed per-garment budget of them with the
-        highest random scores. ``uniforms`` (one (N·Hs·Ws,) tensor per
-        garment) replaces the draws from ``generator``.
+        highest random scores (ties to the lower pixel index). ``uniforms``
+        (one (N·Hs·Ws,) tensor per garment) replaces the draws from
+        ``generator``.
 
-        Returns per garment a dict of (budget,) arrays: batch_inds, rows,
-        cols, init_pts, rays, valid."""
+        With a ``share`` on a mesh, the frames given are the rank's block;
+        the draws still cover the batch (the same on every rank). Each rank
+        keeps its block's best ``budget`` candidates, one all-reduce merges
+        them into the batch's list, which the one-device selection gives,
+        and the rank takes its share of it (``parallel.shard_rays``,
+        padding rows invalid).
+
+        Returns per garment a dict of (rays,) arrays: batch_inds, rows,
+        cols, init_pts, rays, valid; on a mesh also ``span``: (first row of
+        the batch's list, real rows, rows of the batch's list)."""
         cam = self._camera()
-        N = frame_ids.shape[0]
+        share = share or frame_share(frame_ids.shape[0], None)
+        mesh, N = share.mesh, share.n
+        lo = share.rows.start                # the first frame rasterized (a stand-in when empty)
         W, H = self.statics.image_size
         budget = max(self.cfg.sample_pix // self.statics.garment_size, 1) * N
         s = max(1, int(self.cfg.seed_downscale))
         Hs, Ws = H // s, W // s
+        HW = Hs * Ws
         if def_vs is None:
             def_vs = self._deform_garment_verts(list(garment_vs), frame_ids, ratio)
-        out = []
+        picks = []
         for gi in range(self.statics.garment_size):
             scr = screen_with_cam_z(cam, def_vs[gi].detach())
             if s > 1:
@@ -679,20 +804,66 @@ class GarmentOptimNetwork:
             if uniforms is not None:
                 u = uniforms[gi].to(self.device)
             else:
-                u = torch.rand(flat.shape, generator=generator,
+                u = torch.rand(N * HW, generator=generator,
                                device=generator.device if generator is not None else self.device
                                ).to(self.device)
+            u = u[lo * HW:lo * HW + flat.shape[0]]
             scores = torch.where(flat, u, -1.0)
             k = min(budget, flat.shape[0])
             idx = torch.sort(scores, descending=True, stable=True).indices[:k]
-            valid = flat[idx]
-            b = idx // (Hs * Ws)
-            rr = ((idx % (Hs * Ws)) // Ws) * s
+            pick = (idx, pts.reshape(-1, 3)[idx], flat[idx])
+            if mesh is not None:      # the merge orders by score, then by the batch's pixel
+                pick = (idx + lo * HW, *pick[1:], scores[idx])
+            picks.append(pick)
+        if mesh is not None:
+            picks = self._merge_seeds(picks, share, min(budget, N * HW))
+        out = []
+        for idx, init_pts, valid, *_ in picks:
+            span = None
+            if mesh is not None:
+                first, end = ray_share(idx.shape[0], mesh)
+                span = (first, end - first, idx.shape[0])
+                idx, init_pts, valid = shard_rays(mesh, idx, init_pts, valid)
+            b = idx // HW
+            rr = ((idx % HW) // Ws) * s
             cc = (idx % Ws) * s
             pix = torch.stack([cc.to(torch.float32), rr.to(torch.float32),
                                torch.ones_like(cc, dtype=torch.float32)], -1)
-            out.append(dict(batch_inds=b, rows=rr, cols=cc, init_pts=pts.reshape(-1, 3)[idx],
+            out.append(dict(batch_inds=b, rows=rr, cols=cc, init_pts=init_pts,
                             rays=cam_mod.view_rays(cam, pix), valid=valid))
+            if span is not None:
+                out[-1]["span"] = span
+        return out
+
+    def _merge_seeds(self, picks, share, k):
+        """The batch's best ``k`` seeds per garment from every data block's
+        best ones: each block's first rank writes its (present, score,
+        pixel, seed, valid) rows into its slot of a zero-filled float64
+        buffer, one all-reduce sums the slots, and every rank orders the
+        present rows by (score descending, pixel ascending), as the stable
+        sort of one device does."""
+        mesh = share.mesh
+        D, G = mesh.shape["data"], len(picks)
+        buf = torch.zeros(G, D, k, 7, dtype=torch.float64, device=self.device)
+        if share.weight > 0:
+            d = mesh.coord[0]
+            for gi, (idx, pts, valid, score) in enumerate(picks):
+                m = score.shape[0]
+                buf[gi, d, :m, 0] = 1.0
+                buf[gi, d, :m, 1] = score.double()
+                buf[gi, d, :m, 2] = idx.double()
+                buf[gi, d, :m, 3:6] = pts.double()
+                buf[gi, d, :m, 6] = valid.double()
+        rows = mesh.all_reduce(buf).reshape(G, D * k, 7)
+        out = []
+        for g in rows:
+            present = g[:, 0] > 0
+            key_idx = torch.where(present, g[:, 2], float("inf"))
+            order = torch.sort(key_idx, stable=True).indices
+            score = torch.where(present, g[:, 1], -float("inf"))[order]
+            order = order[torch.sort(score, descending=True, stable=True).indices][:k]
+            g = g[order]
+            out.append((g[:, 2].long(), g[:, 3:6].float(), g[:, 6] > 0))
         return out
 
     def solve_surface_points(self, ray_data, frame_ids, ratio):
@@ -771,7 +942,7 @@ class GarmentOptimNetwork:
         dev = generator.device if generator is not None else self.device
         out = []
         for gi, vs in enumerate(garment_vs_t):
-            n_base = solved[gi]["pts"].shape[0] + self.cfg.surface_sample
+            n_base = _ray_span(solved[gi])[2] + self.cfg.surface_sample
             out.append(dict(
                 vsel=torch.randint(0, vs.shape[0], (self.cfg.surface_sample,),
                                    generator=generator, device=dev).to(self.device),
@@ -816,7 +987,7 @@ class GarmentOptimNetwork:
                     uv=torch.rand(50000, 2, generator=generator, device=dev).to(self.device))
 
     def main_loss(self, solved, frame_ids, batch, garment_vs_t, counts, win_ids, ratio,
-                  draws, curve_draws=None):
+                  draws, curve_draws=None, share=None):
         """③: pc-sdf on the (updated, detached) mesh vertices; the
         curve-aware term where it fires, on the current curves as
         constants; per garment the eikonal term on local and global samples
@@ -825,11 +996,21 @@ class GarmentOptimNetwork:
         reattached to the parameters by the implicit surface adjoint; the
         DCT pose prior over ``win_ids``. ``draws`` as ``main_draws`` and
         ``curve_draws`` as ``curve_aware_draws`` make them. Returns
-        (total, info)."""
+        (total, info).
+
+        With a ``share`` on a mesh, ``solved`` holds the rank's rays
+        (``find_and_sample_rays``' ``span``) and the draws cover the batch;
+        the result is the rank's share of the batch's loss: the per-ray
+        terms on its rays over every rank's counts per frame (all-reduced),
+        the eikonal and rigidity terms on its rays and its contiguous share
+        of the vertex and global samples over the batch's sample counts,
+        and the pc-sdf, curve-aware and DCT terms on rank 0."""
         scene = self.scene
         cam = self._camera()
         N = frame_ids.shape[0]
         r = _ratio_dict(ratio)
+        share = share or frame_share(N, None)
+        mesh = share.mesh
         conds = split_deform_conds(scene["conds"]["deformer"][frame_ids],
                                    self.statics.garment_size)
         poses = scene["poses"][frame_ids]
@@ -837,14 +1018,19 @@ class GarmentOptimNetwork:
         info = {}
         total = 0.0
 
-        # pc-sdf: anchor the updated explicit vertices to the implicit surface
+        # pc-sdf: anchor the updated explicit vertices to the implicit
+        # surface. It and the curve-aware term evaluate the SDF with bf16
+        # operands, whose roundings change with the number of rows, so on a
+        # mesh rank 0 computes both whole.
         pc_w = float(self.conf.get_float("pc_weight.weight", 60.0))
         for gi, gname in enumerate(self.statics.garment_names):
-            vs = garment_vs_t[gi].detach()
-            valid = torch.arange(vs.shape[0], device=self.device) < counts[gi]
-            sdfv = sdf_value(self.params["garment_sdfs"][gi], vs, r["sdfRatio"],
-                             compute_dtype=torch.bfloat16)
-            s_loss = L.sdf_shrink_loss(sdfv, self.sdf_shrink, valid)
+            s_loss = 0.0
+            if share.root:
+                vs = garment_vs_t[gi].detach()
+                valid = torch.arange(vs.shape[0], device=self.device) < counts[gi]
+                sdfv = sdf_value(self.params["garment_sdfs"][gi], vs, r["sdfRatio"],
+                                 compute_dtype=torch.bfloat16)
+                s_loss = L.sdf_shrink_loss(sdfv, self.sdf_shrink, valid)
             info[f"pc_{gname}_loss_sdf"] = s_loss
             total = total + s_loss * pc_w
 
@@ -854,19 +1040,21 @@ class GarmentOptimNetwork:
         if target is not None:
             if curve_draws is None:
                 raise ValueError("the curve-aware term needs its draws (curve_aware_draws)")
-            with torch.no_grad():
-                cv = curves_forward(self.params["curves"], self.curve_statics)[
-                    list(self.curve_statics.fl_names).index(target)]
-                center = cv.mean(0, keepdim=True)
-                tri_i, uv = curve_draws["tri_i"], curve_draws["uv"]
-                flip = uv[:, 0] + uv[:, 1] > 1
-                u = torch.where(flip, 1 - uv[:, 0], uv[:, 0])
-                v = torch.where(flip, 1 - uv[:, 1], uv[:, 1])
-                pts = (cv[tri_i] * u[:, None] + cv[(tri_i + 1) % cv.shape[0]] * v[:, None]
-                       + center * (1 - u - v)[:, None])
-            sdfv = sdf_value(self.params["garment_sdfs"][-1], pts, r["sdfRatio"],
-                             compute_dtype=torch.bfloat16)
-            ca_loss = (sdfv + self.sdf_shrink).abs().mean()
+            ca_loss = 0.0
+            if share.root:
+                with torch.no_grad():
+                    cv = curves_forward(self.params["curves"], self.curve_statics)[
+                        list(self.curve_statics.fl_names).index(target)]
+                    center = cv.mean(0, keepdim=True)
+                    tri_i, uv = curve_draws["tri_i"], curve_draws["uv"]
+                    flip = uv[:, 0] + uv[:, 1] > 1
+                    u = torch.where(flip, 1 - uv[:, 0], uv[:, 0])
+                    v = torch.where(flip, 1 - uv[:, 1], uv[:, 1])
+                    pts = (cv[tri_i] * u[:, None] + cv[(tri_i + 1) % cv.shape[0]] * v[:, None]
+                           + center * (1 - u - v)[:, None])
+                sdfv = sdf_value(self.params["garment_sdfs"][-1], pts, r["sdfRatio"],
+                                 compute_dtype=torch.bfloat16)
+                ca_loss = (sdfv + self.sdf_shrink).abs().mean()
             info["curve_aware_loss"] = ca_loss
             total = total + ca_loss * float(self.conf.get_float("pc_weight.curve_aware_weight"))
 
@@ -876,7 +1064,8 @@ class GarmentOptimNetwork:
         nw = float(self.conf.get_float("normal_weight", 0.0))
         origin = cam_mod.cam_pos(cam)
         for gi, gname in enumerate(self.statics.garment_names):
-            sd = solved[gi]
+            first, n_real, n_rays = _ray_span(solved[gi])
+            sd = {k: v[:n_real] for k, v in solved[gi].items() if k != "span"}
             dr = draws[gi]
             gsdf = self.params["garment_sdfs"][gi]
             d_cond = conds[gi + 1]
@@ -884,19 +1073,30 @@ class GarmentOptimNetwork:
             deform = make_deform_fn(self.params, d_cond, poses, trans, r["deformerRatio"],
                                     batch_inds=b_inds)
 
-            # eikonal on local + global samples around the surface points
+            # eikonal on local + global samples around the surface points:
+            # the rank's rays, its share of the vertex samples and of the
+            # global samples, over the batch's sample count
             vs = garment_vs_t[gi]
-            vsel = dr["vsel"] % max(int(counts[gi]), 1)
+            n_vsel, n_glob = dr["vsel"].shape[0], dr["glob"].shape[0]
+            s0, s1 = ray_share(n_vsel, mesh)
+            e0, e1 = ray_share(n_glob, mesh)
+            def mine(x):                 # the rank's rows of a draw over rays, then vsel
+                if mesh is None:
+                    return x
+                return torch.cat([x[first:first + n_real], x[n_rays + s0:n_rays + s1]])
+
+            vsel = dr["vsel"][s0:s1] % max(int(counts[gi]), 1)
             base = torch.cat([sd["pts"], vs[vsel].detach()], 0)
-            nonmnfld = torch.cat([base + 0.01 * dr["local"], dr["glob"]], 0)
+            nonmnfld = torch.cat([base + 0.01 * mine(dr["local"]), dr["glob"][e0:e1]], 0)
             _, grads = sdf_value_and_gradient(gsdf, nonmnfld, r["sdfRatio"])
-            g_loss = L.eikonal_loss(grads)
+            n_base = n_rays + n_vsel
+            g_loss = L.eikonal_loss(grads, total=n_base + n_glob)
             info[f"{gname}_grad_loss"] = g_loss
             total = total + g_loss * grad_w
 
             # rigidity of the offset field (frame 0's latent)
             if dr_w > 0:
-                reg_base = torch.cat([base, base + 0.01 * dr["reg"]], 0)
+                reg_base = torch.cat([base, base + 0.01 * mine(dr["reg"])], 0)
                 cond0 = d_cond[0]
                 Jo = deformer_jacobian(
                     lambda p: translator_apply(self.params["translator"], p,
@@ -904,7 +1104,8 @@ class GarmentOptimNetwork:
                                                r["deformerRatio"])[0],
                     reg_base, create_graph=True)
                 d_loss = L.def_regularization_loss(
-                    Jo, float(self.conf.get_float("def_regu.c", 0.5)))
+                    Jo, float(self.conf.get_float("def_regu.c", 0.5)),
+                    total=2 * n_base)
                 info[f"def_{gname}_loss"] = d_loss
                 total = total + d_loss * dr_w
 
@@ -923,7 +1124,7 @@ class GarmentOptimNetwork:
                 colors = render_net_apply(self.params["render"], TmpPs, nx, crays, feat,
                                           ratio=r["renderRatio"])
                 gt_rgb = batch["img"][b_inds, sd["rows"], sd["cols"]]
-                c_loss = L.color_loss(colors, gt_rgb, b_inds, conv, N)
+                c_loss = L.color_loss(colors, gt_rgb, b_inds, conv, N, share.reduce)
                 info[f"{gname}_color_loss"] = c_loss
                 total = total + cw * c_loss
             if nw > 0 and "normal" in batch:
@@ -932,18 +1133,20 @@ class GarmentOptimNetwork:
                 n_loss = L.normal_pullback_loss(
                     gtn, jac, nx, rays, cam.R, b_inds, conv, N,
                     weighted=bool(self.conf.get_bool("weighted_normal", True)),
-                    deformed_normals=cnx)
+                    deformed_normals=cnx, reduce=share.reduce)
                 info[f"{gname}_normal_loss"] = n_loss
                 total = total + nw * n_loss
 
         # DCT temporal prior over the posed joints
         dct_w = float(self.conf.get_float("dct_weight", 0.0))
         if dct_w > 0 and win_ids is not None:
-            Nlen = self.dct_null.shape[1]
-            flat = win_ids.reshape(-1)
-            js = (posed_skeleton(self.params["skinner"], scene["poses"][flat])
-                  + scene["trans"][flat][:, None, :])
-            d_loss = L.dct_pose_loss(self.dct_null, js.reshape(N, Nlen, 24, 3))
+            d_loss = 0.0
+            if share.root:
+                Nlen = self.dct_null.shape[1]
+                flat = win_ids.reshape(-1)
+                js = (posed_skeleton(self.params["skinner"], scene["poses"][flat])
+                      + scene["trans"][flat][:, None, :])
+                d_loss = L.dct_pose_loss(self.dct_null, js.reshape(N, Nlen, 24, 3))
             info["dct_loss"] = d_loss
             total = total + d_loss * dct_w
         return total, info
@@ -997,6 +1200,8 @@ class GarmentOptimNetwork:
 
     def _grads(self, loss, inputs):
         """∂loss/∂inputs with zeros for inputs the loss does not reach."""
+        if not (torch.is_tensor(loss) and loss.requires_grad):
+            return [torch.zeros_like(x) for x in inputs]
         gs = torch.autograd.grad(loss, inputs, allow_unused=True)
         return [torch.zeros_like(x) if g is None else g for g, x in zip(gs, inputs)]
 
@@ -1024,12 +1229,25 @@ class GarmentOptimNetwork:
         phase name after the phase. Returns (main loss, info); ``info``'s
         ``remeshed`` is 1.0 when the step ran ``marching_cube_update`` and
         0.0 otherwise (the JAX step tells it by a wall time,
-        ``t_remesh > 0.5``)."""
+        ``t_remesh > 0.5``).
+
+        After ``set_parallel(mesh)`` every rank calls it with the same
+        arguments (a generator in the same state, or the same ``draws``):
+        ① and ② run on the rank's block of frames, the solve and ③ on its
+        share of the rays, each loss is the rank's share of the batch's
+        (``parallel.frame_share``), and one flat all-reduce each sums the
+        curve gradients before the AdamW, the vertex gradients before the
+        SGD, and the ② and ③ global gradients (side by side, so that both
+        norms are the batch's) before the Adam, so every rank makes the
+        same update. The loss and ``info`` are the sums of every rank's
+        shares (one all-reduce), the same on every rank."""
         local = np.asarray(frame_ids)
         fids = torch.as_tensor(local + self.dataset.start_idx, device=self.device)
         mark = timer or (lambda name: None)
         r = _ratio_dict(ratio)
         N = len(local)
+        share = frame_share(N, self.pmesh)
+        rows = share.rows
         remeshed = self.mesh is None or (self.opt_times % self.cfg.remesh_intersect == 0
                                          and self._remeshed_at != self.opt_times)
         if remeshed:
@@ -1038,32 +1256,35 @@ class GarmentOptimNetwork:
 
         dev = self.device_batch(batch)
         mark("upload")
-        info_fl = {}
+        info_fl, gnorms = {}, {}
         if not self.large_pose and self.params.get("curves"):
             curve_leaves = self.curve_leaves()
             fl_loss, info_fl = self.fl_branch_loss(
-                self.params["curves"], fids, dev["fl_pts"], dev["fl_masks"], r,
-                self.mesh.garment_vs, self.mesh.garment_fs)
-            g_cur = torch.autograd.grad(fl_loss, curve_leaves)
+                self.params["curves"], fids[rows], dev["fl_pts"][rows], dev["fl_masks"][rows], r,
+                self.mesh.garment_vs, self.mesh.garment_fs, share=share)
+            g_cur = share.sum_flat(self._grads(fl_loss, curve_leaves))
             with torch.no_grad():
                 for p, g in zip(curve_leaves, g_cur):
                     p.grad = g
                 self.curve_opt.step()
                 self.curve_opt.zero_grad(set_to_none=True)
                 info_fl["fl_loss_total"] = fl_loss
-                info_fl["gnorm_fl"] = torch.sqrt(sum(torch.sum(g * g) for g in g_cur))
+                gnorms["gnorm_fl"] = torch.sqrt(sum(torch.sum(g * g) for g in g_cur))
         mark("fl")
 
         gt_masks = [dev[k] for k in self._garment_mask_keys()]
+        block_masks = [m[rows] for m in gt_masks]
         counts = torch.as_tensor(self.mesh.garment_n, device=self.device)
         leaves = self.global_leaves()
         names, prms = list(leaves), list(leaves.values())
         gvs = self.mesh.garment_vs
         gvs_in = [v.detach().requires_grad_(True) for v in gvs]
+        body = dev.get("body")
         pc_loss, (info_pc, _, def_vs) = self.pc_branch_loss(
-            gvs_in, fids, gt_masks, r, counts, body_mask=dev.get("body"))
+            gvs_in, fids[rows], block_masks, r, counts,
+            body_mask=None if body is None else body[rows], share=share)
         g_all = self._grads(pc_loss, gvs_in + prms)
-        g_verts, g_pc = g_all[:len(gvs)], g_all[len(gvs):]
+        g_verts, g_pc = share.sum_flat(g_all[:len(gvs)]), g_all[len(gvs):]
         mark("pc")
 
         pre_vs = [v.detach().clone() for v in gvs]
@@ -1078,9 +1299,9 @@ class GarmentOptimNetwork:
 
         with torch.no_grad():
             ray_data = self.find_and_sample_rays(
-                fids, gt_masks, r, pre_vs, self.mesh.garment_fs,
+                fids[rows], block_masks, r, pre_vs, self.mesh.garment_fs,
                 def_vs=[d.detach() for d in def_vs], generator=generator,
-                uniforms=None if draws is None else draws["uniforms"])
+                uniforms=None if draws is None else draws["uniforms"], share=share)
         mark("rays")
         with torch.no_grad():
             solved = self.solve_surface_points(ray_data, fids, r)
@@ -1098,13 +1319,15 @@ class GarmentOptimNetwork:
             curve_draws = (draws["curve_aware"] if draws is not None
                            else self.curve_aware_draws(generator))
         m_loss, info_m = self.main_loss(solved, fids, dev, gvs, counts, win_ids, r, main_draws,
-                                        curve_draws)
+                                        curve_draws, share=share)
         g_main = self._grads(m_loss, prms)
         mark("main")
 
+        g_both = share.sum_flat(g_pc + g_main)
+        g_pc, g_main = g_both[:len(prms)], g_both[len(prms):]
         with torch.no_grad():
-            gnorm_pc = torch.sqrt(sum(torch.sum(g * g) for g in g_pc))
-            gnorm_main = torch.sqrt(sum(torch.sum(g * g) for g in g_main))
+            gnorms["gnorm_pc"] = torch.sqrt(sum(torch.sum(g * g) for g in g_pc))
+            gnorms["gnorm_main"] = torch.sqrt(sum(torch.sum(g * g) for g in g_main))
             for name, p, a, b in zip(names, prms, g_pc, g_main):
                 g = a + b if self._trainable[name] else torch.zeros_like(p)
                 p.grad = g * self._lr_scale
@@ -1112,14 +1335,19 @@ class GarmentOptimNetwork:
             self.global_opt.zero_grad(set_to_none=True)
         mark("update")
 
-        info = {**info_fl, **info_pc, "pc_loss_total": pc_loss, **info_m, "m_loss_total": m_loss,
-                "gnorm_pc": gnorm_pc, "gnorm_main": gnorm_main, "remeshed": float(remeshed)}
-        budget = max(self.cfg.sample_pix // self.statics.garment_size, 1) * N
+        shares = {**info_fl, **info_pc, "pc_loss_total": pc_loss, **info_m,
+                  "m_loss_total": m_loss}
         for gi, gname in enumerate(self.statics.garment_names):
-            info[f"{gname}_rayConv"] = solved[gi]["conv"].sum()
-            info[f"{gname}_rayBudget"] = budget
-        self.info = {k: float(v.detach()) if torch.is_tensor(v) else float(v)
-                     for k, v in info.items()}
+            shares[f"{gname}_rayConv"] = solved[gi]["conv"].sum()
+        vals = torch.stack([torch.as_tensor(v, dtype=torch.float64, device=self.device
+                                            ).detach().reshape(()) for v in shares.values()])
+        info = dict(zip(shares, share.reduce(vals).tolist()))
+        info.update({k: float(v) for k, v in gnorms.items()})
+        info["remeshed"] = float(remeshed)
+        budget = max(self.cfg.sample_pix // self.statics.garment_size, 1) * N
+        for gname in self.statics.garment_names:
+            info[f"{gname}_rayBudget"] = float(budget)
+        self.info = info
         self.opt_times += 1.0
         return self.info["m_loss_total"], self.info
 
@@ -1504,7 +1732,17 @@ class GarmentOptimNetwork:
         self._init_global_opt()
         if self.params.get("curves"):
             self.reset_curve_optimizer()
+        if self.pmesh is not None:
+            self.broadcast_state()
         return state["epoch"]
+
+
+def _ray_span(solved: dict) -> tuple:
+    """(first row in the batch's ray list, real rows, rows of the batch's
+    list) of a garment's seeded or solved rays; all of them when no
+    ``span`` says otherwise."""
+    n = solved["pts" if "pts" in solved else "valid"].shape[0]
+    return solved.get("span", (0, n, n))
 
 
 def _nanmedian(x, dim: int):

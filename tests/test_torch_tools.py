@@ -292,8 +292,6 @@ COUNTERPARTS = {
 }
 # JAX modules and scripts left out of the port, with the reason (ROADMAP.md)
 DO_NOT_PORT = {
-    "recmv_tpu/parallel/__init__.py": "GSPMD over the TPU's ICI; the target is one H100",
-    "recmv_tpu/parallel/mesh.py": "GSPMD over the TPU's ICI; the target is one H100",
     "recmv_tpu/utils/exec_cache.py": "a cache of serialized XLA executables; the port "
                                      "compiles only its kernels",
     "tools/trace_report.py": "reads XLA TPU profiles; the port's counterparts are "
