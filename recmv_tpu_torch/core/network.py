@@ -59,7 +59,7 @@ from ..ops.rasterizer import composite_points, find_surface_points, rasterize_me
 from ..ops.seg3d import Seg3dConfig, final_grid_spacing, seg3d_forward
 from ..parallel.mesh import broadcast_tensors, frame_share, ray_share, shard_rays
 from ..utils.checkpoint import read_checkpoint, write_checkpoint
-from ..utils.profiling import count_flops
+from ..utils.profiling import count_flops, span
 from . import losses as L
 from . import visibility as V
 from .surface_ps import attach_implicit_surface, optimize_surface_points, ray_constraint
@@ -572,7 +572,10 @@ class GarmentOptimNetwork:
         sdf_w = float(self.conf.get_float("fl_weight.sdf_weight", 60.0))
         need_body = method in ("zbuff", "zbuff_and")
         need_garment = method in ("garment_zbuff", "zbuff_and") and garment_vs_t is not None
-        zbuf = self._body_zbuf_image(frame_ids, cam)[0] if need_body else None
+        zbuf = None
+        if need_body:
+            with span("fl/zbuf"):
+                zbuf = self._body_zbuf_image(frame_ids, cam)[0]
         name_to_idx = {n: i for i, n in enumerate(cs.fl_names)}
         ds_col = {n: i for i, n in enumerate(self.dataset.fl_names)}
         info = {}
@@ -589,7 +592,7 @@ class GarmentOptimNetwork:
             deform = make_deform_fn(self.params, conds[gi + 1], poses, trans, r["deformerRatio"])
             g_zbuf = None
             if need_garment:
-                with torch.no_grad():                # the deformed garment mesh's z-buffer
+                with torch.no_grad(), span("fl/zbuf"):   # the deformed garment mesh's z-buffer
                     vs = garment_vs_t[gi]
                     g_zbuf = V.mesh_zbuf_image(cam, deform(vs.expand((N,) + vs.shape)),
                                                garment_fs_t[gi], image_size,
@@ -796,9 +799,10 @@ class GarmentOptimNetwork:
             scr = screen_with_cam_z(cam, def_vs[gi].detach())
             if s > 1:
                 scr = torch.cat([scr[..., :2] / s, scr[..., 2:]], -1)
-            frag = rasterize_mesh(scr, garment_fs[gi], (Hs, Ws), tile=self.cfg.raster_tile,
-                                  cap=self.cfg.raster_cap_mesh)
-            hits, pts, _ = find_surface_points(frag, garment_vs[gi], garment_fs[gi])
+            with span("rays/raster"):
+                frag = rasterize_mesh(scr, garment_fs[gi], (Hs, Ws), tile=self.cfg.raster_tile,
+                                      cap=self.cfg.raster_cap_mesh)
+                hits, pts, _ = find_surface_points(frag, garment_vs[gi], garment_fs[gi])
             gt_s = gt_garment_masks[gi][:, ::s, ::s][:, :Hs, :Ws]
             flat = (hits & (gt_s > 0)).reshape(-1)
             if uniforms is not None:
@@ -819,10 +823,10 @@ class GarmentOptimNetwork:
             picks = self._merge_seeds(picks, share, min(budget, N * HW))
         out = []
         for idx, init_pts, valid, *_ in picks:
-            span = None
+            share_rows = None
             if mesh is not None:
                 first, end = ray_share(idx.shape[0], mesh)
-                span = (first, end - first, idx.shape[0])
+                share_rows = (first, end - first, idx.shape[0])
                 idx, init_pts, valid = shard_rays(mesh, idx, init_pts, valid)
             b = idx // HW
             rr = ((idx % HW) // Ws) * s
@@ -831,8 +835,8 @@ class GarmentOptimNetwork:
                                torch.ones_like(cc, dtype=torch.float32)], -1)
             out.append(dict(batch_inds=b, rows=rr, cols=cc, init_pts=init_pts,
                             rays=cam_mod.view_rays(cam, pix), valid=valid))
-            if span is not None:
-                out[-1]["span"] = span
+            if share_rows is not None:
+                out[-1]["span"] = share_rows
         return out
 
     def _merge_seeds(self, picks, share, k):
@@ -868,19 +872,21 @@ class GarmentOptimNetwork:
 
     def solve_surface_points(self, ray_data, frame_ids, ratio):
         """Refine the seeds to surface/ray intersections per garment."""
-        cam = self._camera()
-        r = _ratio_dict(ratio)
-        conds = split_deform_conds(self.scene["conds"]["deformer"][frame_ids],
-                                   self.statics.garment_size)
-        poses = self.scene["poses"][frame_ids]
-        trans = self.scene["trans"][frame_ids]
-        origin = cam_mod.cam_pos(cam).detach()
-        if self.ang_thred is None:
-            self.ang_thred = cam_mod.ang_threshold(cam)
+        with span("solve/setup"):
+            cam = self._camera()
+            r = _ratio_dict(ratio)
+            conds = split_deform_conds(self.scene["conds"]["deformer"][frame_ids],
+                                       self.statics.garment_size)
+            poses = self.scene["poses"][frame_ids]
+            trans = self.scene["trans"][frame_ids]
+            origin = cam_mod.cam_pos(cam).detach()
+            if self.ang_thred is None:
+                self.ang_thred = cam_mod.ang_threshold(cam)
         results = []
         for gi, rd in enumerate(ray_data):
-            deform = make_deform_fn(self.params, conds[gi + 1], poses, trans,
-                                    r["deformerRatio"], batch_inds=rd["batch_inds"])
+            with span("solve/setup"):
+                deform = make_deform_fn(self.params, conds[gi + 1], poses, trans,
+                                        r["deformerRatio"], batch_inds=rd["batch_inds"])
             gsdf = self.params["garment_sdfs"][gi]
             pts, conv = optimize_surface_points(
                 lambda p, net=gsdf: sdf_value(net, p, r["sdfRatio"]), deform, origin,
@@ -1022,41 +1028,43 @@ class GarmentOptimNetwork:
         # surface. It and the curve-aware term evaluate the SDF with bf16
         # operands, whose roundings change with the number of rows, so on a
         # mesh rank 0 computes both whole.
-        pc_w = float(self.conf.get_float("pc_weight.weight", 60.0))
-        for gi, gname in enumerate(self.statics.garment_names):
-            s_loss = 0.0
-            if share.root:
-                vs = garment_vs_t[gi].detach()
-                valid = torch.arange(vs.shape[0], device=self.device) < counts[gi]
-                sdfv = sdf_value(self.params["garment_sdfs"][gi], vs, r["sdfRatio"],
-                                 compute_dtype=torch.bfloat16)
-                s_loss = L.sdf_shrink_loss(sdfv, self.sdf_shrink, valid)
-            info[f"pc_{gname}_loss_sdf"] = s_loss
-            total = total + s_loss * pc_w
+        with span("main/pc_sdf"):
+            pc_w = float(self.conf.get_float("pc_weight.weight", 60.0))
+            for gi, gname in enumerate(self.statics.garment_names):
+                s_loss = 0.0
+                if share.root:
+                    vs = garment_vs_t[gi].detach()
+                    valid = torch.arange(vs.shape[0], device=self.device) < counts[gi]
+                    sdfv = sdf_value(self.params["garment_sdfs"][gi], vs, r["sdfRatio"],
+                                     compute_dtype=torch.bfloat16)
+                    s_loss = L.sdf_shrink_loss(sdfv, self.sdf_shrink, valid)
+                info[f"pc_{gname}_loss_sdf"] = s_loss
+                total = total + s_loss * pc_w
 
         # curve-aware hemline disc: the last garment's SDF on the fan disc
         # of the (updated, constant) target curve
         target = self._curve_aware_target()
         if target is not None:
-            if curve_draws is None:
-                raise ValueError("the curve-aware term needs its draws (curve_aware_draws)")
-            ca_loss = 0.0
-            if share.root:
-                with torch.no_grad():
-                    cv = curves_forward(self.params["curves"], self.curve_statics)[
-                        list(self.curve_statics.fl_names).index(target)]
-                    center = cv.mean(0, keepdim=True)
-                    tri_i, uv = curve_draws["tri_i"], curve_draws["uv"]
-                    flip = uv[:, 0] + uv[:, 1] > 1
-                    u = torch.where(flip, 1 - uv[:, 0], uv[:, 0])
-                    v = torch.where(flip, 1 - uv[:, 1], uv[:, 1])
-                    pts = (cv[tri_i] * u[:, None] + cv[(tri_i + 1) % cv.shape[0]] * v[:, None]
-                           + center * (1 - u - v)[:, None])
-                sdfv = sdf_value(self.params["garment_sdfs"][-1], pts, r["sdfRatio"],
-                                 compute_dtype=torch.bfloat16)
-                ca_loss = (sdfv + self.sdf_shrink).abs().mean()
-            info["curve_aware_loss"] = ca_loss
-            total = total + ca_loss * float(self.conf.get_float("pc_weight.curve_aware_weight"))
+            with span("main/curve_aware"):
+                if curve_draws is None:
+                    raise ValueError("the curve-aware term needs its draws (curve_aware_draws)")
+                ca_loss = 0.0
+                if share.root:
+                    with torch.no_grad():
+                        cv = curves_forward(self.params["curves"], self.curve_statics)[
+                            list(self.curve_statics.fl_names).index(target)]
+                        center = cv.mean(0, keepdim=True)
+                        tri_i, uv = curve_draws["tri_i"], curve_draws["uv"]
+                        flip = uv[:, 0] + uv[:, 1] > 1
+                        u = torch.where(flip, 1 - uv[:, 0], uv[:, 0])
+                        v = torch.where(flip, 1 - uv[:, 1], uv[:, 1])
+                        pts = (cv[tri_i] * u[:, None] + cv[(tri_i + 1) % cv.shape[0]] * v[:, None]
+                               + center * (1 - u - v)[:, None])
+                    sdfv = sdf_value(self.params["garment_sdfs"][-1], pts, r["sdfRatio"],
+                                     compute_dtype=torch.bfloat16)
+                    ca_loss = (sdfv + self.sdf_shrink).abs().mean()
+                info["curve_aware_loss"] = ca_loss
+                total = total + ca_loss * float(self.conf.get_float("pc_weight.curve_aware_weight"))
 
         grad_w = float(self.conf.get_float("grad_weight", 1.0))
         dr_w = float(self.conf.get_float("def_regu.weight", 0.0))
@@ -1076,79 +1084,85 @@ class GarmentOptimNetwork:
             # eikonal on local + global samples around the surface points:
             # the rank's rays, its share of the vertex samples and of the
             # global samples, over the batch's sample count
-            vs = garment_vs_t[gi]
-            n_vsel, n_glob = dr["vsel"].shape[0], dr["glob"].shape[0]
-            s0, s1 = ray_share(n_vsel, mesh)
-            e0, e1 = ray_share(n_glob, mesh)
-            def mine(x):                 # the rank's rows of a draw over rays, then vsel
-                if mesh is None:
-                    return x
-                return torch.cat([x[first:first + n_real], x[n_rays + s0:n_rays + s1]])
+            with span("main/eikonal"):
+                vs = garment_vs_t[gi]
+                n_vsel, n_glob = dr["vsel"].shape[0], dr["glob"].shape[0]
+                s0, s1 = ray_share(n_vsel, mesh)
+                e0, e1 = ray_share(n_glob, mesh)
+                def mine(x):                 # the rank's rows of a draw over rays, then vsel
+                    if mesh is None:
+                        return x
+                    return torch.cat([x[first:first + n_real], x[n_rays + s0:n_rays + s1]])
 
-            vsel = dr["vsel"][s0:s1] % max(int(counts[gi]), 1)
-            base = torch.cat([sd["pts"], vs[vsel].detach()], 0)
-            nonmnfld = torch.cat([base + 0.01 * mine(dr["local"]), dr["glob"][e0:e1]], 0)
-            _, grads = sdf_value_and_gradient(gsdf, nonmnfld, r["sdfRatio"])
-            n_base = n_rays + n_vsel
-            g_loss = L.eikonal_loss(grads, total=n_base + n_glob)
-            info[f"{gname}_grad_loss"] = g_loss
-            total = total + g_loss * grad_w
+                vsel = dr["vsel"][s0:s1] % max(int(counts[gi]), 1)
+                base = torch.cat([sd["pts"], vs[vsel].detach()], 0)
+                nonmnfld = torch.cat([base + 0.01 * mine(dr["local"]), dr["glob"][e0:e1]], 0)
+                _, grads = sdf_value_and_gradient(gsdf, nonmnfld, r["sdfRatio"])
+                n_base = n_rays + n_vsel
+                g_loss = L.eikonal_loss(grads, total=n_base + n_glob)
+                info[f"{gname}_grad_loss"] = g_loss
+                total = total + g_loss * grad_w
 
             # rigidity of the offset field (frame 0's latent)
             if dr_w > 0:
-                reg_base = torch.cat([base, base + 0.01 * mine(dr["reg"])], 0)
-                cond0 = d_cond[0]
-                Jo = deformer_jacobian(
-                    lambda p: translator_apply(self.params["translator"], p,
-                                               cond0.expand(p.shape[0], -1),
-                                               r["deformerRatio"])[0],
-                    reg_base, create_graph=True)
-                d_loss = L.def_regularization_loss(
-                    Jo, float(self.conf.get_float("def_regu.c", 0.5)),
-                    total=2 * n_base)
-                info[f"def_{gname}_loss"] = d_loss
-                total = total + d_loss * dr_w
+                with span("main/def_regu"):
+                    reg_base = torch.cat([base, base + 0.01 * mine(dr["reg"])], 0)
+                    cond0 = d_cond[0]
+                    Jo = deformer_jacobian(
+                        lambda p: translator_apply(self.params["translator"], p,
+                                                   cond0.expand(p.shape[0], -1),
+                                                   r["deformerRatio"])[0],
+                        reg_base, create_graph=True)
+                    d_loss = L.def_regularization_loss(
+                        Jo, float(self.conf.get_float("def_regu.c", 0.5)),
+                        total=2 * n_base)
+                    info[f"def_{gname}_loss"] = d_loss
+                    total = total + d_loss * dr_w
 
             # colour + normal on converged rays, through the implicit adjoint
-            rays = sd["rays"]
-            TmpPs = attach_implicit_surface(
-                sd["pts"], lambda p: sdf_value(gsdf, p, r["sdfRatio"]),
-                lambda p: ray_constraint(deform(p), origin, rays))
-            _, feat = sdf_apply(gsdf, TmpPs, r["sdfRatio"])
-            nx = sdf_gradient(gsdf, TmpPs, r["sdfRatio"], create_graph=True)
-            nx = nx / torch.clamp(torch.linalg.norm(nx, dim=-1, keepdim=True), min=1e-9)
-            jac = deformer_jacobian(deform, TmpPs, create_graph=True)
-            crays, _ = cardinal_rays_from_jac(jac, rays)
-            conv = sd["conv"]
+            with span("main/attach"):
+                rays = sd["rays"]
+                TmpPs = attach_implicit_surface(
+                    sd["pts"], lambda p: sdf_value(gsdf, p, r["sdfRatio"]),
+                    lambda p: ray_constraint(deform(p), origin, rays))
+                _, feat = sdf_apply(gsdf, TmpPs, r["sdfRatio"])
+                nx = sdf_gradient(gsdf, TmpPs, r["sdfRatio"], create_graph=True)
+                nx = nx / torch.clamp(torch.linalg.norm(nx, dim=-1, keepdim=True), min=1e-9)
+                jac = deformer_jacobian(deform, TmpPs, create_graph=True)
+                crays, _ = cardinal_rays_from_jac(jac, rays)
+                conv = sd["conv"]
             if cw > 0:
-                colors = render_net_apply(self.params["render"], TmpPs, nx, crays, feat,
-                                          ratio=r["renderRatio"])
-                gt_rgb = batch["img"][b_inds, sd["rows"], sd["cols"]]
-                c_loss = L.color_loss(colors, gt_rgb, b_inds, conv, N, share.reduce)
-                info[f"{gname}_color_loss"] = c_loss
-                total = total + cw * c_loss
+                with span("main/color"):
+                    colors = render_net_apply(self.params["render"], TmpPs, nx, crays, feat,
+                                              ratio=r["renderRatio"])
+                    gt_rgb = batch["img"][b_inds, sd["rows"], sd["cols"]]
+                    c_loss = L.color_loss(colors, gt_rgb, b_inds, conv, N, share.reduce)
+                    info[f"{gname}_color_loss"] = c_loss
+                    total = total + cw * c_loss
             if nw > 0 and "normal" in batch:
-                gtn = batch["normal"][b_inds, sd["rows"], sd["cols"]]
-                cnx, _ = deformed_normals_from_grads(jac.detach(), nx.detach())
-                n_loss = L.normal_pullback_loss(
-                    gtn, jac, nx, rays, cam.R, b_inds, conv, N,
-                    weighted=bool(self.conf.get_bool("weighted_normal", True)),
-                    deformed_normals=cnx, reduce=share.reduce)
-                info[f"{gname}_normal_loss"] = n_loss
-                total = total + nw * n_loss
+                with span("main/normal"):
+                    gtn = batch["normal"][b_inds, sd["rows"], sd["cols"]]
+                    cnx, _ = deformed_normals_from_grads(jac.detach(), nx.detach())
+                    n_loss = L.normal_pullback_loss(
+                        gtn, jac, nx, rays, cam.R, b_inds, conv, N,
+                        weighted=bool(self.conf.get_bool("weighted_normal", True)),
+                        deformed_normals=cnx, reduce=share.reduce)
+                    info[f"{gname}_normal_loss"] = n_loss
+                    total = total + nw * n_loss
 
         # DCT temporal prior over the posed joints
         dct_w = float(self.conf.get_float("dct_weight", 0.0))
         if dct_w > 0 and win_ids is not None:
-            d_loss = 0.0
-            if share.root:
-                Nlen = self.dct_null.shape[1]
-                flat = win_ids.reshape(-1)
-                js = (posed_skeleton(self.params["skinner"], scene["poses"][flat])
-                      + scene["trans"][flat][:, None, :])
-                d_loss = L.dct_pose_loss(self.dct_null, js.reshape(N, Nlen, 24, 3))
-            info["dct_loss"] = d_loss
-            total = total + d_loss * dct_w
+            with span("main/dct"):
+                d_loss = 0.0
+                if share.root:
+                    Nlen = self.dct_null.shape[1]
+                    flat = win_ids.reshape(-1)
+                    js = (posed_skeleton(self.params["skinner"], scene["poses"][flat])
+                          + scene["trans"][flat][:, None, :])
+                    d_loss = L.dct_pose_loss(self.dct_null, js.reshape(N, Nlen, 24, 3))
+                info["dct_loss"] = d_loss
+                total = total + d_loss * dct_w
         return total, info
 
     # ------------------------------------------------------------------
@@ -1226,10 +1240,12 @@ class GarmentOptimNetwork:
         ({"uniforms": per garment seeding uniforms, "main": ``main_draws``'
         list, "curve_aware": ``curve_aware_draws``' dict where the term
         fires}) replaces them. ``timer``, if given, is called with each
-        phase name after the phase. Returns (main loss, info); ``info``'s
-        ``remeshed`` is 1.0 when the step ran ``marching_cube_update`` and
-        0.0 otherwise (the JAX step tells it by a wall time,
-        ``t_remesh > 0.5``).
+        phase name after the phase; with tracing on (``utils.profiling``),
+        spans name the parts of the phases (``fl/*``, ``pc/*``, ``rays/*``,
+        ``solve/*``, ``main/*``, ``update/*``). Returns (main loss, info);
+        ``info``'s ``remeshed`` is 1.0 when the step ran
+        ``marching_cube_update`` and 0.0 otherwise (the JAX step tells it by
+        a wall time, ``t_remesh > 0.5``).
 
         After ``set_parallel(mesh)`` every rank calls it with the same
         arguments (a generator in the same state, or the same ``draws``):
@@ -1259,11 +1275,14 @@ class GarmentOptimNetwork:
         info_fl, gnorms = {}, {}
         if not self.large_pose and self.params.get("curves"):
             curve_leaves = self.curve_leaves()
-            fl_loss, info_fl = self.fl_branch_loss(
-                self.params["curves"], fids[rows], dev["fl_pts"][rows], dev["fl_masks"][rows], r,
-                self.mesh.garment_vs, self.mesh.garment_fs, share=share)
-            g_cur = share.sum_flat(self._grads(fl_loss, curve_leaves))
-            with torch.no_grad():
+            with span("fl/loss"):
+                fl_loss, info_fl = self.fl_branch_loss(
+                    self.params["curves"], fids[rows], dev["fl_pts"][rows],
+                    dev["fl_masks"][rows], r, self.mesh.garment_vs, self.mesh.garment_fs,
+                    share=share)
+            with span("fl/backward"):
+                g_cur = share.sum_flat(self._grads(fl_loss, curve_leaves))
+            with torch.no_grad(), span("fl/adamw"):
                 for p, g in zip(curve_leaves, g_cur):
                     p.grad = g
                 self.curve_opt.step()
@@ -1272,19 +1291,21 @@ class GarmentOptimNetwork:
                 gnorms["gnorm_fl"] = torch.sqrt(sum(torch.sum(g * g) for g in g_cur))
         mark("fl")
 
-        gt_masks = [dev[k] for k in self._garment_mask_keys()]
-        block_masks = [m[rows] for m in gt_masks]
-        counts = torch.as_tensor(self.mesh.garment_n, device=self.device)
-        leaves = self.global_leaves()
-        names, prms = list(leaves), list(leaves.values())
-        gvs = self.mesh.garment_vs
-        gvs_in = [v.detach().requires_grad_(True) for v in gvs]
-        body = dev.get("body")
-        pc_loss, (info_pc, _, def_vs) = self.pc_branch_loss(
-            gvs_in, fids[rows], block_masks, r, counts,
-            body_mask=None if body is None else body[rows], share=share)
-        g_all = self._grads(pc_loss, gvs_in + prms)
-        g_verts, g_pc = share.sum_flat(g_all[:len(gvs)]), g_all[len(gvs):]
+        with span("pc/forward"):
+            gt_masks = [dev[k] for k in self._garment_mask_keys()]
+            block_masks = [m[rows] for m in gt_masks]
+            counts = torch.as_tensor(self.mesh.garment_n, device=self.device)
+            leaves = self.global_leaves()
+            names, prms = list(leaves), list(leaves.values())
+            gvs = self.mesh.garment_vs
+            gvs_in = [v.detach().requires_grad_(True) for v in gvs]
+            body = dev.get("body")
+            pc_loss, (info_pc, _, def_vs) = self.pc_branch_loss(
+                gvs_in, fids[rows], block_masks, r, counts,
+                body_mask=None if body is None else body[rows], share=share)
+        with span("pc/backward"):
+            g_all = self._grads(pc_loss, gvs_in + prms)
+            g_verts, g_pc = share.sum_flat(g_all[:len(gvs)]), g_all[len(gvs):]
         mark("pc")
 
         pre_vs = [v.detach().clone() for v in gvs]
@@ -1297,7 +1318,7 @@ class GarmentOptimNetwork:
                 v.grad = None
         mark("verts")
 
-        with torch.no_grad():
+        with torch.no_grad(), span("rays/select"):
             ray_data = self.find_and_sample_rays(
                 fids[rows], block_masks, r, pre_vs, self.mesh.garment_fs,
                 def_vs=[d.detach() for d in def_vs], generator=generator,
@@ -1307,25 +1328,27 @@ class GarmentOptimNetwork:
             solved = self.solve_surface_points(ray_data, fids, r)
         mark("solve")
 
-        win_ids = None
-        if (float(self.conf.get_float("dct_weight", 0.0)) > 0
-                and self.dataset.frame_num > self.dct_null.shape[1]):
-            win_ids = torch.as_tensor(self._window_ids(local, self.dct_null.shape[1]),
-                                      device=self.device)
-        main_draws = (draws["main"] if draws is not None
-                      else self.main_draws(solved, gvs, generator))
-        curve_draws = None
-        if self._curve_aware_target() is not None:
-            curve_draws = (draws["curve_aware"] if draws is not None
-                           else self.curve_aware_draws(generator))
+        with span("main/draws"):
+            win_ids = None
+            if (float(self.conf.get_float("dct_weight", 0.0)) > 0
+                    and self.dataset.frame_num > self.dct_null.shape[1]):
+                win_ids = torch.as_tensor(self._window_ids(local, self.dct_null.shape[1]),
+                                          device=self.device)
+            main_draws = (draws["main"] if draws is not None
+                          else self.main_draws(solved, gvs, generator))
+            curve_draws = None
+            if self._curve_aware_target() is not None:
+                curve_draws = (draws["curve_aware"] if draws is not None
+                               else self.curve_aware_draws(generator))
         m_loss, info_m = self.main_loss(solved, fids, dev, gvs, counts, win_ids, r, main_draws,
                                         curve_draws, share=share)
-        g_main = self._grads(m_loss, prms)
+        with span("main/backward"):
+            g_main = self._grads(m_loss, prms)
         mark("main")
 
-        g_both = share.sum_flat(g_pc + g_main)
-        g_pc, g_main = g_both[:len(prms)], g_both[len(prms):]
-        with torch.no_grad():
+        with torch.no_grad(), span("update/adam"):
+            g_both = share.sum_flat(g_pc + g_main)
+            g_pc, g_main = g_both[:len(prms)], g_both[len(prms):]
             gnorms["gnorm_pc"] = torch.sqrt(sum(torch.sum(g * g) for g in g_pc))
             gnorms["gnorm_main"] = torch.sqrt(sum(torch.sum(g * g) for g in g_main))
             for name, p, a, b in zip(names, prms, g_pc, g_main):
@@ -1335,14 +1358,15 @@ class GarmentOptimNetwork:
             self.global_opt.zero_grad(set_to_none=True)
         mark("update")
 
-        shares = {**info_fl, **info_pc, "pc_loss_total": pc_loss, **info_m,
-                  "m_loss_total": m_loss}
-        for gi, gname in enumerate(self.statics.garment_names):
-            shares[f"{gname}_rayConv"] = solved[gi]["conv"].sum()
-        vals = torch.stack([torch.as_tensor(v, dtype=torch.float64, device=self.device
-                                            ).detach().reshape(()) for v in shares.values()])
-        info = dict(zip(shares, share.reduce(vals).tolist()))
-        info.update({k: float(v) for k, v in gnorms.items()})
+        with span("update/info"):
+            shares = {**info_fl, **info_pc, "pc_loss_total": pc_loss, **info_m,
+                      "m_loss_total": m_loss}
+            for gi, gname in enumerate(self.statics.garment_names):
+                shares[f"{gname}_rayConv"] = solved[gi]["conv"].sum()
+            vals = torch.stack([torch.as_tensor(v, dtype=torch.float64, device=self.device
+                                                ).detach().reshape(()) for v in shares.values()])
+            info = dict(zip(shares, share.reduce(vals).tolist()))
+            info.update({k: float(v) for k, v in gnorms.items()})
         info["remeshed"] = float(remeshed)
         budget = max(self.cfg.sample_pix // self.statics.garment_size, 1) * N
         for gname in self.statics.garment_names:

@@ -18,6 +18,7 @@ import math
 import torch
 
 from ..ops.math3d import fast_3x3_inv
+from ..utils.profiling import count, span
 
 MAX_STEP = 0.05      # canonical units per Newton step (trust region)
 DTHRESHOLD = 5e-5    # |sdf| bound of a converged point
@@ -36,7 +37,14 @@ def optimize_surface_points(sdf_fn, deform_fn, cam_origin, rays, init_pts, valid
 
     A point converges when |sdf| < dthreshold and its angle to the ray is
     below athreshold_deg, checked before each step; at most times + 1
-    evaluations run, stopping early once no point is left unfinished."""
+    evaluations run, stopping early once no point is left unfinished.
+
+    Traced (``utils.profiling``): spans ``solve/setup``, ``solve/check``
+    (the host's read of the stop test), ``solve/eval`` (the SDF and the
+    deformation and their gradient), ``solve/step`` (the projected
+    update) and ``solve/finish``; counters ``solve.calls``,
+    ``solve.evals``, ``solve.rows`` (rows evaluated) and ``solve.live``
+    (rows valid and unfinished as each evaluation starts)."""
 
     def eval_at(pts):
         with torch.enable_grad():
@@ -52,25 +60,36 @@ def optimize_surface_points(sdf_fn, deform_fn, cam_origin, rays, init_pts, valid
         conv = (l1.detach() < dthreshold) & (ang < athreshold_deg)
         return losses.detach(), grads, conv
 
-    pts = init_pts.detach()
-    unfinished = valid.clone()
+    with span("solve/setup"):
+        pts = init_pts.detach()
+        unfinished = valid.clone()
     it = 0
-    while it <= times and bool(unfinished.any()):
-        losses, grads, conv = eval_at(pts)
-        unfinished = unfinished & ~conv
-        gg = torch.sum(grads * grads, -1)
-        ok = gg > 1e-12
-        t = torch.where(ok, -losses / torch.where(ok, gg, 1.0), 0.0)
-        step = t[:, None] * grads
-        slen = torch.linalg.norm(step, dim=-1, keepdim=True)
-        step = step * torch.clamp(MAX_STEP / torch.clamp(slen, min=1e-12), max=1.0)
-        new_pts = pts + step
-        finite = torch.isfinite(new_pts).all(-1)
-        pts = torch.where((unfinished & finite)[:, None], new_pts, pts)
-        unfinished = unfinished & finite
+    while it <= times:
+        with span("solve/check"):
+            if not bool(unfinished.any()):
+                break
+        count("solve.live", unfinished)
+        with span("solve/eval"):
+            losses, grads, conv = eval_at(pts)
+        with span("solve/step"):
+            unfinished = unfinished & ~conv
+            gg = torch.sum(grads * grads, -1)
+            ok = gg > 1e-12
+            t = torch.where(ok, -losses / torch.where(ok, gg, 1.0), 0.0)
+            step = t[:, None] * grads
+            slen = torch.linalg.norm(step, dim=-1, keepdim=True)
+            step = step * torch.clamp(MAX_STEP / torch.clamp(slen, min=1e-12), max=1.0)
+            new_pts = pts + step
+            finite = torch.isfinite(new_pts).all(-1)
+            pts = torch.where((unfinished & finite)[:, None], new_pts, pts)
+            unfinished = unfinished & finite
         it += 1
-    pts = torch.where(torch.isfinite(pts), pts, 0.0)
-    return pts, valid & ~unfinished
+    count("solve.calls")
+    count("solve.evals", it)
+    count("solve.rows", it * valid.shape[0])
+    with span("solve/finish"):
+        pts = torch.where(torch.isfinite(pts), pts, 0.0)
+        return pts, valid & ~unfinished
 
 
 def ray_constraint(deformed_pts, cam_origin, rays):

@@ -19,7 +19,8 @@ memory, ``step_cost`` (the step's FLOPs by
 MFU against the H100's 67 TFLOP/s float32 peak: TF32 is off) and, with
 ``--sustain N``, N more steps at remesh cadence 8 with their times and
 finiteness. ``--profile [DIR]`` writes a ``torch.profiler`` trace of the
-warm steps into ``DIR/trace.json``.
+warm steps, the step's spans in it, into ``DIR/trace.json`` and their
+counters into ``DIR/counters.json`` (``utils.profiling.trace``).
 
 ``--device`` (default ``cuda``; ``cpu`` for the tests) replaces the JAX
 tool's ``--platform``; ``--cache-dir``, ``--exec-cache`` and the
@@ -55,7 +56,8 @@ def parse_args(argv=None):
                     help="then N steps at remesh cadence 8 (per-step walls, finiteness)")
     ap.add_argument("--profile", nargs="?", const=bench_path("fullstep_trace"), default=None,
                     metavar="DIR", help="write a torch.profiler trace of the warm steps into "
-                    "DIR/trace.json (default DIR: recmv_tpu_torch/_bench/fullstep_trace)")
+                    "DIR/trace.json and their counters into DIR/counters.json (default DIR: "
+                    "recmv_tpu_torch/_bench/fullstep_trace)")
     ap.add_argument("--init-epochs", type=int, default=40)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--scene", default=bench_path("scenes", "bench"),

@@ -1,8 +1,21 @@
-"""Tracing, phase timers and work counts (counterpart of
-``recmv_tpu/utils/profiling.py``): a ``torch.profiler`` trace exported for
-Chrome/Perfetto, wall-time phase timers aggregated per name, and named
-regions in the trace, with the JAX module's names and ``summary()`` /
-``dump()`` layout.
+"""Tracing and work counts (counterpart of ``recmv_tpu/utils/profiling.py``).
+
+The port's one span and counter system, off unless switched on:
+
+- ``span(name)``: a named region. Off, it is one shared null context;
+  on, a ``torch.profiler.record_function``, so the region lands in the
+  profiler's timeline beside the device work it launched.
+- ``count(name, value)``: adds to a named counter while tracing is on. A
+  value that needs device work is passed as a callable, called only
+  while tracing is on; a tensor adds the sum of its elements, taken on
+  the device when ``counters()`` reads every counter, once.
+- ``enable(syncs=False)``, ``disable()``, ``enabled()``. With
+  ``syncs=True`` every host synchronization that torch's sync debug mode
+  reports adds 1 to ``sync:<innermost open span>:<file>:<line>``, the
+  line being the innermost frame of this package.
+- ``trace(log_dir)``: the block under ``torch.profiler`` with spans and
+  counters on; writes ``trace.json`` (Chrome/Perfetto) and
+  ``counters.json``.
 
 Beside them, the work the three CUDA kernels do on given arguments (the
 bytes each must move and the operations its covered or live pairs need),
@@ -18,7 +31,8 @@ import contextlib
 import json
 import os
 import os.path as osp
-import time
+import sys
+import warnings
 from collections import defaultdict
 
 import torch
@@ -26,56 +40,138 @@ import torch
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory, published peak
 FP32_FLOP_PER_S = 67e12        # H100 SXM float32 outside the tensor cores, published peak
 
+_PACKAGE = osp.dirname(osp.dirname(osp.abspath(__file__)))
+_ROOT = osp.dirname(_PACKAGE)
+_SYNC_WARNING = "synchronizing CUDA operation"     # torch's sync debug mode, "warn"
+_NULL = contextlib.nullcontext()
+_host = defaultdict(float)        # counter → the sum of its host numbers
+_device = defaultdict(list)       # counter → tensors whose element sums it adds
+_tracing = None                   # the open session while tracing is on
+
+
+class _Session:
+    """Tracing while on: the names of the open spans, innermost last, and
+    with ``syncs`` the warning filters and sync debug mode to restore."""
+
+    def __init__(self, syncs: bool):
+        self.open = []
+        self.syncs = syncs
+        if syncs:
+            self.filters = warnings.catch_warnings()
+            self.filters.__enter__()
+            warnings.simplefilter("always")         # every occurrence, not one per line
+            self.shown = warnings.showwarning
+            warnings.showwarning = self.on_warning
+            if torch.cuda.is_available():
+                torch.cuda.set_sync_debug_mode("warn")
+
+    def close(self):
+        if self.syncs:
+            if torch.cuda.is_available():
+                torch.cuda.set_sync_debug_mode(0)
+            self.filters.__exit__(None, None, None)
+
+    def on_warning(self, message, category, filename, lineno, file=None, line=None):
+        if _SYNC_WARNING not in str(message):
+            self.shown(message, category, filename, lineno, file, line)
+            return
+        frame = sys._getframe(1)
+        while frame is not None and not frame.f_code.co_filename.startswith(_PACKAGE + os.sep):
+            frame = frame.f_back
+        if frame is not None:
+            filename, lineno = frame.f_code.co_filename, frame.f_lineno
+        if filename.startswith(_ROOT + os.sep):
+            filename = osp.relpath(filename, _ROOT)
+        where = self.open[-1] if self.open else "-"
+        _host[f"sync:{where}:{filename}:{lineno}"] += 1.0
+
+
+def enable(syncs: bool = False) -> None:
+    """Switch spans and counters on, the counters from zero; with
+    ``syncs``, count the host's synchronizations by span and line too."""
+    disable()
+    _host.clear()
+    _device.clear()
+    global _tracing
+    _tracing = _Session(syncs)
+
+
+def disable() -> None:
+    """Switch tracing off; the counters stay for ``counters()``."""
+    global _tracing
+    if _tracing is not None:
+        _tracing.close()
+        _tracing = None
+
+
+def enabled() -> bool:
+    return _tracing is not None
+
+
+def span(name: str):
+    """A context manager over a named region of the program (see the
+    module)."""
+    if _tracing is None:
+        return _NULL
+    return _open_span(_tracing, name)
+
+
+@contextlib.contextmanager
+def _open_span(session: _Session, name: str):
+    session.open.append(name)
+    try:
+        with torch.profiler.record_function(name):
+            yield
+    finally:
+        session.open.pop()
+
+
+def count(name: str, value=1) -> None:
+    """Add ``value`` to counter ``name`` while tracing is on (see the
+    module)."""
+    if _tracing is None:
+        return
+    if callable(value):
+        value = value()
+    if torch.is_tensor(value):
+        _device[name].append(value.detach())
+    else:
+        _host[name] += float(value)
+
+
+def counters() -> dict:
+    """{counter: float}, the device sums read in one transfer; resets every
+    counter."""
+    out = dict(_host)
+    names = list(_device)
+    if names:
+        sums = torch.stack([torch.cat([t.reshape(-1) for t in _device[k]]).sum(
+            dtype=torch.float64) for k in names])
+        for k, v in zip(names, sums.tolist()):
+            out[k] = out.get(k, 0.0) + v
+    _host.clear()
+    _device.clear()
+    return out
+
 
 @contextlib.contextmanager
 def trace(log_dir: str):
     """Capture a ``torch.profiler`` trace of the block (host activity, and
-    the card's where there is one) into ``<log_dir>/trace.json``."""
+    the card's where there is one), spans and counters on, into
+    ``<log_dir>/trace.json`` and ``<log_dir>/counters.json``."""
     os.makedirs(log_dir, exist_ok=True)
     acts = [torch.profiler.ProfilerActivity.CPU]
     if torch.cuda.is_available():
         acts.append(torch.profiler.ProfilerActivity.CUDA)
-    with torch.profiler.profile(activities=acts) as prof:
-        yield prof
+    enable()
+    try:
+        with torch.profiler.profile(activities=acts) as prof:
+            yield prof
+    finally:
+        disable()
     prof.export_chrome_trace(osp.join(log_dir, "trace.json"))
-
-
-class PhaseTimers:
-    """Accumulates wall time per named phase. With ``sync=True`` a phase
-    given a ``result`` ends with ``torch.cuda.synchronize()`` once the
-    process has used the card, so the time covers the device's work; on
-    the CPU there is nothing to wait for."""
-
-    def __init__(self, sync: bool = False):
-        self.sync = sync
-        self.totals = defaultdict(float)
-        self.counts = defaultdict(int)
-
-    @contextlib.contextmanager
-    def phase(self, name: str, result=None):
-        t0 = time.perf_counter()
-        yield
-        if self.sync and result is not None and torch.cuda.is_initialized():
-            torch.cuda.synchronize()
-        dt = time.perf_counter() - t0
-        self.totals[name] += dt
-        self.counts[name] += 1
-
-    def summary(self) -> dict:
-        return {k: {"total_s": round(v, 4), "count": self.counts[k],
-                    "mean_s": round(v / max(self.counts[k], 1), 4)}
-                for k, v in sorted(self.totals.items())}
-
-    def dump(self, path: str):
-        with open(path, "w") as f:
-            json.dump(self.summary(), f, indent=2)
-
-
-@contextlib.contextmanager
-def annotate(name: str):
-    """Named region in profiler traces."""
-    with torch.profiler.record_function(name):
-        yield
+    with open(osp.join(log_dir, "counters.json"), "w") as f:
+        json.dump(counters(), f, indent=1, sort_keys=True)
 
 
 # ---------------------------------------------------------------------------

@@ -1,5 +1,5 @@
-"""The port's debug renders (``utils/debug_vis.py``), the training CLI's
-debug output and the phase timers (``utils/profiling.py``), on the CPU.
+"""The port's debug renders (``utils/debug_vis.py``) and the training CLI's
+debug output, on the CPU.
 
 - ``turntable_curve_mesh`` and ``save_debug`` against the JAX package's on
   one state (``test_torch_train._build_pair`` with curves, a 6-frame 48 px
@@ -15,12 +15,9 @@ debug output and the phase timers (``utils/profiling.py``), on the CPU.
 - The CLI writes ``debug/`` with ``--save-debug`` and a
   ``logs/<step>_<garment>_turntable.png`` after a remesh past step 1
   without it.
-- ``PhaseTimers`` has the JAX module's ``summary()`` / ``dump()`` layout.
 """
 
-import json
 import os
-import time
 
 import numpy as np
 import pytest
@@ -168,38 +165,3 @@ def test_cli_writes_debug_renders(pair, capsys):
     logs = sorted(f for f in os.listdir(os.path.join(save, "logs")) if f.endswith(".png"))
     assert logs == ["000002_tube_turntable.png"]
     assert "debug_turntable_tube_000002.png" in os.listdir(os.path.join(save, "logs", "imgs"))
-
-
-def test_phase_timers_match_jax_layout(tmp_path, monkeypatch):
-    from recmv_tpu.utils.profiling import PhaseTimers as JTimers
-    from recmv_tpu_torch.utils.profiling import PhaseTimers, annotate, trace
-
-    def never(*a, **k):
-        raise AssertionError("no CUDA synchronize on the CPU")
-
-    monkeypatch.setattr(torch.cuda, "synchronize", never)
-    timers = []
-    for cls, res in ((JTimers, jax.numpy.ones(3)), (PhaseTimers, torch.ones(3))):
-        t = cls(sync=True)
-        for name in ("solve", "pc", "solve"):
-            with t.phase(name, result=res):
-                time.sleep(0.002)
-        timers.append(t)
-    got, want = (t.summary() for t in timers)
-    assert list(got) == list(want) == ["pc", "solve"]
-    for k in want:
-        assert list(got[k]) == list(want[k]) == ["total_s", "count", "mean_s"]
-        assert got[k]["count"] == want[k]["count"]
-        assert got[k]["total_s"] >= 0.002 * got[k]["count"]
-    paths = [str(tmp_path / n) for n in ("port.json", "jax.json")]
-    for t, p in zip(timers, paths):
-        t.dump(p)
-    docs = [json.load(open(p)) for p in paths]
-    assert docs[0] == got and list(docs[0]) == list(docs[1])
-    assert open(paths[0]).read().count("\n") == open(paths[1]).read().count("\n")
-
-    with trace(str(tmp_path / "trace")):
-        with annotate("debug_region"):
-            torch.ones(8).sum()
-    with open(tmp_path / "trace" / "trace.json") as f:
-        assert "debug_region" in f.read()
