@@ -19,7 +19,7 @@ OptimGarmentNetwork.py, SURVEY §3.5).
   (``smooth_trans``, :2567).
 
 Everything runs on the network's device under ``torch.no_grad()``; the
-colour pass differentiates inside ``optimize_surface_points``,
+colour pass differentiates inside the surface solve (``SurfaceSolver``),
 ``sdf_gradient`` and ``deformer_jacobian``, which take their gradients
 under ``torch.enable_grad()`` themselves and return tensors with no graph.
 PNGs are written with ``data/png.imwrite`` and hold the RGB images (it
@@ -413,19 +413,21 @@ class GarmentInference:
         OptimGarmentNetwork.py:3186-3207) → (colours (M, 3), converged)."""
         from ..models.deformer import cardinal_rays_from_jac, deformer_jacobian
         from ..models.render_net import render_net_apply
-        from ..models.sdf import sdf_apply, sdf_gradient, sdf_value
-        from .surface_ps import optimize_surface_points
+        from ..models.sdf import sdf_apply, sdf_gradient
+        from ..models.skinner import skinning_transforms
 
         net = self.net
         gsdf = net.params["garment_sdfs"][gi]
+        sk = net.params["skinner"]
         M = rays.shape[0]
         b_inds = torch.zeros(M, dtype=torch.int64, device=self.device)
         deform = make_deform_fn(net.params, cond, poses, trans, r["deformerRatio"],
                                 batch_inds=b_inds)
         valid = torch.ones(M, dtype=torch.bool, device=self.device)
-        pts, conv = optimize_surface_points(lambda p: sdf_value(gsdf, p, r["sdfRatio"]), deform,
-                                            origin, rays, seeds, valid, athreshold_deg=ang,
-                                            times=30, dthreshold=1e-4)
+        pts, conv = net.surface_solver(gi).solve(
+            gsdf, net.params["translator"], sk, origin, rays, seeds, valid, b_inds, cond,
+            skinning_transforms(sk, poses), trans + sk.extra_trans,
+            (r["sdfRatio"], r["deformerRatio"]), athreshold_deg=ang, times=30, dthreshold=1e-4)
         _, feat = sdf_apply(gsdf, pts, r["sdfRatio"])
         nx = sdf_gradient(gsdf, pts, r["sdfRatio"])
         nx = nx / torch.clamp(torch.linalg.norm(nx, dim=-1, keepdim=True), min=1e-9)

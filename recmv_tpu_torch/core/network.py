@@ -50,7 +50,7 @@ from ..models.deformer import (InverseFlBody, cardinal_rays_from_jac,
 from ..models.garment_model import ModelStatics, make_deform_fn, scene_camera, split_deform_conds
 from ..models.render_net import render_net_apply
 from ..models.sdf import sdf_apply, sdf_gradient, sdf_value, sdf_value_and_gradient
-from ..models.skinner import posed_skeleton, skinner_apply
+from ..models.skinner import posed_skeleton, skinner_apply, skinning_transforms
 from ..models.translator import translator_apply
 from ..native import marching_cubes_host
 from ..ops.marching_cubes import marching_cubes
@@ -62,7 +62,7 @@ from ..utils.checkpoint import read_checkpoint, write_checkpoint
 from ..utils.profiling import count_flops, span
 from . import losses as L
 from . import visibility as V
-from .surface_ps import attach_implicit_surface, optimize_surface_points, ray_constraint
+from .surface_ps import SurfaceSolver, attach_implicit_surface, ray_constraint
 
 
 @dataclass
@@ -132,6 +132,7 @@ class GarmentOptimNetwork:
         self._remeshed_at = -1.0
         self.info = {}
         self.ang_thred = None
+        self.surface_solvers = {}           # garment → SurfaceSolver (surface_solver)
         self.isfine = False
         self.dct_null = torch.as_tensor(dct_null_space(10, 30), device=self.device)
         self.tmp_body_vs = (None if body_vs is None else
@@ -872,28 +873,30 @@ class GarmentOptimNetwork:
 
     def solve_surface_points(self, ray_data, frame_ids, ratio):
         """Refine the seeds to surface/ray intersections per garment."""
-        with span("solve/setup"):
+        sk = self.params["skinner"]
+        with span("solve/setup"), torch.no_grad():
             cam = self._camera()
             r = _ratio_dict(ratio)
             conds = split_deform_conds(self.scene["conds"]["deformer"][frame_ids],
                                        self.statics.garment_size)
-            poses = self.scene["poses"][frame_ids]
-            trans = self.scene["trans"][frame_ids]
+            A = skinning_transforms(sk, self.scene["poses"][frame_ids])
+            trans = self.scene["trans"][frame_ids] + sk.extra_trans
             origin = cam_mod.cam_pos(cam).detach()
             if self.ang_thred is None:
                 self.ang_thred = cam_mod.ang_threshold(cam)
         results = []
         for gi, rd in enumerate(ray_data):
-            with span("solve/setup"):
-                deform = make_deform_fn(self.params, conds[gi + 1], poses, trans,
-                                        r["deformerRatio"], batch_inds=rd["batch_inds"])
-            gsdf = self.params["garment_sdfs"][gi]
-            pts, conv = optimize_surface_points(
-                lambda p, net=gsdf: sdf_value(net, p, r["sdfRatio"]), deform, origin,
-                rd["rays"].detach(), rd["init_pts"].detach(), rd["valid"],
+            pts, conv = self.surface_solver(gi).solve(
+                self.params["garment_sdfs"][gi], self.params["translator"], sk, origin,
+                rd["rays"].detach(), rd["init_pts"].detach(), rd["valid"], rd["batch_inds"],
+                conds[gi + 1], A, trans, (r["sdfRatio"], r["deformerRatio"]),
                 athreshold_deg=self.ang_thred, times=self.cfg.solver_times)
             results.append(dict(pts=pts, conv=conv, **rd))
         return results
+
+    def surface_solver(self, gi: int) -> SurfaceSolver:
+        """Garment ``gi``'s ``SurfaceSolver`` (its captured iterations)."""
+        return self.surface_solvers.setdefault(gi, SurfaceSolver())
 
     # ------------------------------------------------------------------
     # ③ IDR colour block of main_loss

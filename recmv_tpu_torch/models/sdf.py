@@ -68,7 +68,12 @@ def sdf_apply(net: SdfNet, pts: torch.Tensor, ratio=None, compute_dtype=None):
     and an f32 output. The solver, eikonal and render paths stay f32."""
     if isinstance(ratio, dict):
         ratio = ratio.get("sdfRatio")
-    x = embed_with_ratio(net.embedder, pts, ratio)
+    return sdf_layers(net, embed_with_ratio(net.embedder, pts, ratio), compute_dtype)
+
+
+def sdf_layers(net: SdfNet, x: torch.Tensor, compute_dtype=None):
+    """``sdf_apply`` from the encoded points x (..., input_ch) on: the
+    layers and the skip."""
     inp = x
     for l, lin in enumerate(net.lins):
         if l in net.skip_in:

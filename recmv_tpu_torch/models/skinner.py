@@ -83,23 +83,31 @@ def skinner_apply(sk: SkinnerParams, ps, poses, trans, batch_inds=None, also_app
     ``ps``) — returns (posed_ps, posed_also)."""
     A = skinning_transforms(sk, poses)
     trans = trans + sk.extra_trans
+    if batch_inds is not None:
+        return skin_rows(sk, ps, A[batch_inds], trans[batch_inds], also_apply)
     ws = sample_skin_weights(sk, ps)
-    if batch_inds is None:
-        B, N, _ = ps.shape
-        T = torch.einsum("bnj,bjxy->bnxy", ws.reshape(B, N, 24), A)
+    B, N, _ = ps.shape
+    T = torch.einsum("bnj,bjxy->bnxy", ws.reshape(B, N, 24), A)
 
-        def pose_pts(q):
-            qh = torch.cat([q, torch.ones_like(q[..., :1])], dim=-1)
-            return torch.einsum("bnxy,bny->bnx", T, qh)[..., :3] + trans[:, None, :]
+    def pose_pts(q):
+        qh = torch.cat([q, torch.ones_like(q[..., :1])], dim=-1)
+        return torch.einsum("bnxy,bny->bnx", T, qh)[..., :3] + trans[:, None, :]
 
-        if also_apply is not None:
-            return pose_pts(ps), pose_pts(also_apply.expand_as(ps))
-        return pose_pts(ps)
-    T = torch.einsum("mj,mjxy->mxy", ws, A[batch_inds])
+    if also_apply is not None:
+        return pose_pts(ps), pose_pts(also_apply.expand_as(ps))
+    return pose_pts(ps)
+
+
+def skin_rows(sk: SkinnerParams, ps, A_rows, trans_rows, also_apply=None):
+    """``skinner_apply``'s flat form with each row's frame already gathered:
+    ps (M, 3), A_rows (M, 24, 4, 4) skinning transforms, trans_rows (M, 3)
+    translations with the extra one added."""
+    ws = sample_skin_weights(sk, ps)
+    T = torch.einsum("mj,mjxy->mxy", ws, A_rows)
 
     def pose_flat(q):
         qh = torch.cat([q, torch.ones_like(q[:, :1])], dim=-1)
-        return torch.einsum("mxy,my->mx", T, qh)[..., :3] + trans[batch_inds]
+        return torch.einsum("mxy,my->mx", T, qh)[..., :3] + trans_rows
 
     if also_apply is not None:
         return pose_flat(ps.reshape(-1, 3)), pose_flat(also_apply.reshape(-1, 3))

@@ -43,7 +43,12 @@ def translator_offset(net: Translator, ps: torch.Tensor, cond: torch.Tensor, rat
     """ps (..., 3) canonical points, cond (..., condlen) → offsets (..., 3)."""
     if isinstance(ratio, dict):
         ratio = ratio.get("deformerRatio")
-    x = torch.cat([embed_with_ratio(net.embedder, ps, ratio), cond], dim=-1)
+    return translator_layers(net, torch.cat([embed_with_ratio(net.embedder, ps, ratio), cond],
+                                            dim=-1))
+
+
+def translator_layers(net: Translator, x: torch.Tensor) -> torch.Tensor:
+    """``translator_offset`` from its input [PE(xyz), cond] on."""
     for l, lin in enumerate(net.lins):
         x = lin(x, compute_dtype=torch.bfloat16)
         if l < len(net.lins) - 1:

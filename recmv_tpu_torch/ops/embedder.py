@@ -28,9 +28,13 @@ class Embedder:
         self.multires = int(multires)
         self.freq_bands = [2.0 ** i for i in range(self.multires)]
         self.out_dim = 3 * (1 + 2 * self.multires)
+        self._freqs = {}              # (device, dtype) → the bands as a tensor, made once
 
     def __call__(self, x: torch.Tensor, ws=None) -> torch.Tensor:
-        freqs = torch.tensor(self.freq_bands, dtype=x.dtype, device=x.device)
+        freqs = self._freqs.get((x.device, x.dtype))
+        if freqs is None:
+            freqs = self._freqs[x.device, x.dtype] = torch.tensor(
+                self.freq_bands, dtype=x.dtype, device=x.device)
         xf = x[..., None, :] * freqs[:, None]                       # (..., L, d)
         enc = torch.stack([torch.sin(xf), torch.cos(xf)], dim=-2)   # (..., L, 2, d)
         if ws is not None:
@@ -40,12 +44,18 @@ class Embedder:
         return torch.cat([x, enc], dim=-1)
 
 
+def ratio_weights(emb: Embedder, ratio, device=None) -> torch.Tensor | None:
+    """The band weights ``embed_with_ratio`` gives ``emb`` for ``ratio``, on
+    ``device``: None (unweighted bands) for None; zero for ratio ≤ 0;
+    otherwise annealed."""
+    if ratio is None:
+        return None
+    r = torch.clamp(torch.as_tensor(ratio, dtype=torch.float32, device=device), min=0.0)
+    return annealing_weights(emb.multires, r)
+
+
 def embed_with_ratio(emb: Embedder | None, x: torch.Tensor, ratio) -> torch.Tensor:
-    """The reference's ratio semantics: None → unweighted bands; ratio ≤ 0
-    → zero band weights; otherwise annealed."""
+    """The reference's ratio semantics (``ratio_weights``)."""
     if emb is None:
         return x
-    if ratio is None:
-        return emb(x)
-    r = torch.clamp(torch.as_tensor(ratio, dtype=torch.float32, device=x.device), min=0.0)
-    return emb(x, annealing_weights(emb.multires, r))
+    return emb(x, ratio_weights(emb, ratio, x.device))
