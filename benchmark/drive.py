@@ -1,7 +1,8 @@
 """What the port and the reference share: building a network for a cell
 from a package (``recmv_tpu_torch`` or the frozen copy
-``benchmark.reference.recmv``, which have the same interface), the order
-of frames, and the readings of the first training steps that the
+``benchmark.reference.recmv``, which have the same interface), the
+configuration's garment set in both packages' tables, the order of
+frames, and the readings of the first training steps that the
 comparison (``check.py``) holds against each other."""
 
 from __future__ import annotations
@@ -21,18 +22,62 @@ from .weights import load_weights
 
 PHASES = ("remesh", "upload", "fl", "pc", "verts", "rays", "solve", "main", "update")
 LOSSES = ("fl_loss_total", "pc_loss_total", "m_loss_total")
+REF = f"{__package__}.reference.recmv"
+
+
+def garment_set(config: dict) -> dict:
+    """{table of ``config/constants``: {key: entry}} that the configuration
+    states: its garment type's pieces (``garments``), annotated curves
+    (``curves``) and curve-aware curve (``curve_aware``, None where it
+    states none), and each piece's curves (``garment_curves``)."""
+    gt = config["garment_type"]
+    return {"TEMPLATE_GARMENT": {gt: list(config["garments"])},
+            "FL_INFOS": {gt: list(config["curves"])},
+            "CURVE_AWARE": {gt: config.get("curve_aware")},
+            "FL_EXTRACT": {g: list(c) for g, c in config["garment_curves"].items()}}
+
+
+def register_garment_set(config: dict) -> None:
+    """Add the configuration's entries to the frozen copy's tables where the
+    key is absent (no entry where it states none); raises where the copy
+    holds another entry. The copy's files stay as they are."""
+    constants = importlib.import_module(f"{REF}.config.constants")
+    for table, entries in garment_set(config).items():
+        have = getattr(constants, table)
+        for key, entry in entries.items():
+            if key not in have and entry is not None:
+                have[key] = entry
+            elif have.get(key) != entry:
+                raise ValueError(f"the frozen copy's {table}[{key!r}] is {have.get(key)!r}; "
+                                 f"configuration {config['name']!r} states {entry!r}")
+
+
+def check_garment_set(pkg: str, config: dict) -> None:
+    """Raise, naming both sides, where package ``pkg``'s tables do not give
+    the configuration's garment set (the harness never writes them)."""
+    constants = importlib.import_module(f"{pkg}.config.constants")
+    wrong = [f"{table}[{key!r}]: {pkg} gives {getattr(constants, table).get(key)!r}, "
+             f"the configuration states {entry!r}"
+             for table, entries in garment_set(config).items()
+             for key, entry in entries.items() if getattr(constants, table).get(key) != entry]
+    if wrong:
+        raise ValueError(f"{pkg} does not give configuration {config['name']!r}'s garment set: "
+                         + "; ".join(wrong))
 
 
 def build(pkg: str, config: dict, traffic: dict, scene_dir: str, save_root: str, weights: dict,
           device, times: dict | None = None):
     """The dataset and the network of one cell from package ``pkg``: the
-    configuration's HOCON tree, the traffic's batch, pyramid, point
+    configuration's garment set registered in the frozen copy's tables, its
+    HOCON tree, the traffic's batch, pyramid, point
     radius, remesh cadence and loss block, ``weights`` in the networks and
     the scene's curves. ``save_root`` keeps the package's skinner cache
     for the scene (a cache that a killed run left unreadable is removed
     first). ``times``, where given, gets the seconds of the dataset
     (``dataset_s``) and of ``build_opt_net`` (``build_s``), each ending in a
     synchronize. Returns (dataset, network)."""
+    if pkg == REF:
+        register_garment_set(config)
     hocon = importlib.import_module(f"{pkg}.config")
     builder = importlib.import_module(f"{pkg}.core.builder")
     network = importlib.import_module(f"{pkg}.core.network")

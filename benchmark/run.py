@@ -3,8 +3,10 @@
 
     python3 benchmark/run.py --workload <cell> --seed <n> --seconds <s> --trace <0|1>
 
-From the root of a checkout. Set-up: the cell's scene (the frozen
-generator, ``scene.py``; made under ``TMPDIR`` by the first run there),
+From the root of a checkout. Set-up: a check that the port's tables
+give the configuration's garment set (``drive.check_garment_set``), the
+cell's scene (the frozen generator or the configuration's scene module,
+``scene.py``; made under ``TMPDIR`` by the first run there),
 the port's network (``build_opt_net``) with the weights drawn from the
 seed (``weights.py``), and the first ``check_steps`` training steps,
 which warm every shape and are read for the comparison. Then the window: for
@@ -40,7 +42,6 @@ import traceback
 HERE = osp.dirname(osp.abspath(__file__))
 ROOT = osp.dirname(HERE)
 PORT = "recmv_tpu_torch"
-REF = "benchmark.reference.recmv"
 FORBIDDEN = ("jax", "jaxlib", "flax", "recmv_tpu")
 # the host's compute threads: one, so that no pool spins beside the thread that launches
 THREADS = 1
@@ -123,8 +124,9 @@ def run_cell(spec: dict, seed: int, seconds: float, trace: bool, device,
     record and the compared readings."""
     import torch
 
-    from . import check, flops, scene
+    from . import check, drive, flops, scene
 
+    drive.check_garment_set(PORT, spec["config"])      # before the scene: fails in seconds
     cuda = device.type == "cuda"
     step_fn = step_fn or default_step
     seed = int(seed) % (1 << 63)
@@ -250,7 +252,7 @@ def reference_record(spec: dict, seed: int, device, scene_dir: str, check_batche
 
     config, traffic = spec["config"], spec["traffic"]
     weights = make_weights(config, seed, device)
-    ds, net = drive.build(REF, config, traffic, scene_dir,
+    ds, net = drive.build(drive.REF, config, traffic, scene_dir,
                           osp.join(scene_dir, "reference_result"), weights, device)
     del weights
     torch.backends.cuda.matmul.allow_tf32 = tf32

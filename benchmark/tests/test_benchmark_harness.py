@@ -53,6 +53,22 @@ def tiny(cell: str) -> dict:
     return c
 
 
+def crop_top_cell() -> dict:
+    """A cell of a configuration that exists only here, at the tiny size:
+    ``tube.fine_b1`` with the garment type ``bench-crop-top``, which
+    neither the frozen copy nor the port lists, its scene from
+    ``benchmark/scenes/crop_top.py`` and the curve-aware term on
+    ``bottom_curve``."""
+    c = tiny("tube.fine_b1")
+    cfg = c["config"]
+    cfg.update(name="bench_crop_top", garment_type="bench-crop-top", curve_aware="bottom_curve",
+               scene={"module": "crop_top", "skinner_res": cfg["scene"]["skinner_res"],
+                      "raster_cap": cfg["scene"]["raster_cap"]})
+    cfg["conf"]["train"]["garment_type"] = "bench-crop-top"
+    c["cell"] = dict(c["cell"], name="crop_top.fine_b1", config="bench_crop_top")
+    return c
+
+
 @pytest.fixture(autouse=True)
 def _threads():
     n = torch.get_num_threads()
@@ -146,6 +162,179 @@ def test_frame_order_is_drawn_from_the_seed():
     assert sorted(sum(first[:4], [])) == list(range(12))    # an epoch covers every frame once
     c = drive.frame_batches(2 ** 31 + 6, 12, 3)
     assert [next(c) for _ in range(8)] != first
+
+
+# --------------------------------------------------------------------------
+# a configuration's own scene, garment set and SDF seed
+# --------------------------------------------------------------------------
+
+def _same_files(a: str, b: str) -> None:
+    """Every file under ``a`` and ``b`` alike: the same names, the same bytes,
+    the arrays of each ``.npz`` alike (a zip member carries its time)."""
+    import numpy as np
+
+    def names(d):
+        return sorted(osp.relpath(osp.join(r, f), d) for r, _, fs in os.walk(d) for f in fs)
+
+    assert names(a) == names(b)
+    for n in names(a):
+        pa, pb = osp.join(a, n), osp.join(b, n)
+        if n.endswith(".npz"):
+            za, zb = np.load(pa), np.load(pb)
+            assert sorted(za.files) == sorted(zb.files), n
+            assert all(np.array_equal(za[k], zb[k]) for k in za.files), n
+        else:
+            with open(pa, "rb") as fa, open(pb, "rb") as fb:
+                assert fa.read() == fb.read(), n
+
+
+@pytest.mark.parametrize("cell", ["tube.fine_b1", "two_piece.coarse_b3"])
+def test_existing_configurations_read_what_the_frozen_generator_gives(cell, tmp_path,
+                                                                       monkeypatch):
+    """For the configurations that name the frozen generator, the scene
+    cache's directory keeps its name and holds the frozen generator's
+    files, the curves are its rings, and the weights are those of
+    ``SDF_SEED`` 90. ``scenes/render.py``, given the generator's own meshes
+    and rings, writes the same files."""
+    import hashlib
+    import tempfile
+
+    import numpy as np
+
+    from benchmark import scene
+    from benchmark.reference.recmv.data import synthetic
+    from benchmark.reference.recmv.geometry.polygons import uniform_sample_3d
+    from benchmark.scenes.render import render_scene
+
+    c = tiny(cell)
+    cfg, tr, gen = c["config"], c["traffic"], c["config"]["scene"]["generator"]
+    monkeypatch.setattr(tempfile, "tempdir", str(tmp_path))
+    key = {"scene": cfg["scene"], "image": 64, "frames": 4, "version": synthetic.SCENE_VERSION}
+    tag = hashlib.sha1(json.dumps(key, sort_keys=True).encode()).hexdigest()[:12]
+    dev = torch.device("cpu")
+    got = scene.cached(cfg, tr, dev)
+    assert got == osp.join(str(tmp_path), "recmv_bench_scenes", f"{gen}_64_4_{tag}")
+    args = dict(n_frames=4, image_size=64, skinner_res=tuple(cfg["scene"]["skinner_res"]),
+                raster_cap=cfg["scene"]["raster_cap"], device=dev)
+    want = synthetic.generate_scene(str(tmp_path / "frozen"), garment_type=gen, **args)
+    _same_files(got, want)
+    rings = [(n, synthetic.boundary_ring(y, offset=off))
+             for n, y, off in synthetic.SCENE_CURVES[gen]]
+    pieces = [(n, synthetic.garment_mesh(offset=off, band=band), label)
+              for n, off, band, label in synthetic.SCENE_GARMENTS[gen]]
+    rendered = render_scene(str(tmp_path / "render"), **args, garment_type=gen,
+                            version=synthetic.SCENE_VERSION, pieces=pieces, rings=rings,
+                            diffused=gen == "synthetic-two")
+    _same_files(rendered, want)
+
+    aligned, template, rigid = scene.curves(cfg)
+    assert list(aligned) == cfg["curves"] and template is aligned
+    for n, ring in rings:
+        assert np.array_equal(aligned[n], uniform_sample_3d(ring, 200).astype(np.float32))
+        assert rigid[n][1] == 1.0 and not rigid[n][0].any()
+
+    w = weights.make_weights(cfg, 2 ** 31 + 17, dev)
+    specs = {}
+    for s in weights.layers(cfg):
+        specs.setdefault(s[0].rsplit(".lins.", 1)[0], []).append(s)
+    sdf_nets = ["sdf"] + [f"garment_sdfs.{i}" for i in range(len(cfg["garments"]))]
+    for i, net in enumerate(sdf_nets):
+        direct = weights._draw(specs[net], torch.Generator().manual_seed(90 + i), dev)
+        assert direct.keys() <= w.keys()
+        assert all(torch.equal(w[k], v) for k, v in direct.items()), net
+    assert "sdf_seed" not in cfg
+
+
+def test_sdf_seed_from_the_configuration():
+    """``sdf_seed`` moves every SDF's seed (the drawn weights; the output
+    biases are constants); the other nets keep the run's."""
+    cfg = spec.load_cell("two_piece.coarse_b3")["config"]
+    base = weights.make_weights(cfg, 2 ** 31 + 19, "cpu")
+    moved = weights.make_weights(dict(cfg, sdf_seed=weights.SDF_SEED + 1), 2 ** 31 + 19, "cpu")
+    for k, v in moved.items():
+        if k.endswith(".b") and "sdf" in k:
+            continue
+        if k.startswith("sdf."):
+            assert torch.equal(v, base["garment_sdfs.0." + k[4:]]), k
+        elif k.startswith("garment_sdfs.0."):
+            assert torch.equal(v, base["garment_sdfs.1." + k[15:]]), k
+        elif not k.startswith("garment_sdfs."):
+            assert torch.equal(v, base[k]), k
+
+
+TABLES = ("TEMPLATE_GARMENT", "FL_INFOS", "CURVE_AWARE", "FL_EXTRACT")
+
+
+@pytest.fixture
+def copy_tables():
+    """The frozen copy's tables, restored after the test (the harness adds
+    a configuration's entries to them in place)."""
+    from benchmark.reference.recmv.config import constants
+
+    saved = {t: dict(getattr(constants, t)) for t in TABLES}
+    yield constants
+    for t, d in saved.items():
+        getattr(constants, t).clear()
+        getattr(constants, t).update(d)
+
+
+def test_a_configuration_of_new_files_runs_through_both_packages(copy_tables, monkeypatch):
+    """A configuration that only new files make (a scene module, a garment
+    type neither package lists): the harness adds its garment set to the
+    frozen copy's tables, the port is given its entries here, and a run
+    reads every compared number 0."""
+    from recmv_tpu_torch.config import constants as port
+
+    c = crop_top_cell()
+    gt = c["config"]["garment_type"]
+    assert all(gt not in getattr(copy_tables, t) for t in TABLES[:3])
+    assert all(gt not in getattr(port, t) for t in TABLES[:3])
+    monkeypatch.setitem(port.TEMPLATE_GARMENT, gt, ["tube"])
+    monkeypatch.setitem(port.FL_INFOS, gt, ["neck", "bottom_curve"])
+    monkeypatch.setitem(port.CURVE_AWARE, gt, "bottom_curve")
+    monkeypatch.setattr(check, "load_limits", lambda cell: dict.fromkeys(check.NUMBERS, 0.0))
+    out = bench_run.run_cell(c, 2 ** 31 + 103, 0.5, False, torch.device("cpu"))
+    values = check.readings(out["_readings"]["program"], out["_readings"]["reference"])
+    assert values == dict.fromkeys(check.NUMBERS, 0.0)
+    assert out["correct"] is True and out["failed"] == 0
+    assert copy_tables.TEMPLATE_GARMENT[gt] == ["tube"]
+    assert copy_tables.CURVE_AWARE[gt] == "bottom_curve"
+    assert out["_readings"]["program"]["mesh"]["verts"][0] > 0
+
+
+@pytest.mark.parametrize("port_entry", [["upper_tube", "skirt"], None])
+def test_a_garment_set_the_port_does_not_give_fails_at_set_up(port_entry, copy_tables,
+                                                              monkeypatch):
+    """Where the port's entry for the garment type differs from the
+    configuration's, or is missing, a run stops before its scene and its
+    first step, and names both lists."""
+    from benchmark import scene
+    from recmv_tpu_torch.config import constants as port
+
+    c = crop_top_cell()
+    gt = c["config"]["garment_type"]
+    if port_entry is not None:
+        monkeypatch.setitem(port.TEMPLATE_GARMENT, gt, port_entry)
+    monkeypatch.setitem(port.FL_INFOS, gt, ["neck", "bottom_curve"])
+    monkeypatch.setitem(port.CURVE_AWARE, gt, "bottom_curve")
+
+    def never(*a, **k):
+        raise AssertionError("the run went on past the check")
+
+    monkeypatch.setattr(scene, "cached", never)
+    with pytest.raises(ValueError) as err:
+        bench_run.run_cell(c, 5, 0.5, False, torch.device("cpu"), step_fn=never)
+    msg = str(err.value)
+    assert f"TEMPLATE_GARMENT[{gt!r}]" in msg and repr(port_entry) in msg and "['tube']" in msg
+    assert "FL_INFOS" not in msg and gt not in copy_tables.TEMPLATE_GARMENT
+
+
+def test_the_frozen_copy_refuses_a_garment_set_it_holds_otherwise(copy_tables):
+    """An entry is added to the frozen copy only where its key is absent."""
+    cfg = dict(spec.load_cell("tube.fine_b1")["config"], garments=["upper_tube"])
+    with pytest.raises(ValueError, match=r"TEMPLATE_GARMENT\['synthetic-tube'\] is \['tube'\]"):
+        drive.register_garment_set(cfg)
+    assert copy_tables.TEMPLATE_GARMENT["synthetic-tube"] == ["tube"]
 
 
 # --------------------------------------------------------------------------
@@ -357,18 +546,20 @@ def _altered_step(net, batch, fids, ratio, generator, timer):
     return out
 
 
+@pytest.mark.parametrize("cell", WORKLOADS)
 @pytest.mark.parametrize("fault", ["state_unchanged", "half_batch", "update_altered"])
-def test_faults_make_correct_false(fault):
+def test_faults_make_correct_false(fault, cell):
     """Each fault that a one-chip training cell can have, planted under the
-    timed path, makes ``correct`` false: a step that returns its state
-    unchanged, half of the batch left out (the mean over the rest), and
-    an update altered where it is produced. (The exchange between chips
-    does not exist on one chip.)"""
+    timed path, makes ``correct`` false in every cell: a step that returns
+    its state unchanged, half of the batch left out (the mean over the
+    rest: half the frames, or half the rays of one frame), and an update
+    altered where it is produced. (The exchange between chips does not
+    exist on one chip.)"""
     from benchmark.calibrate import half_batch_step
 
     step = {"state_unchanged": _unchanged_step, "half_batch": half_batch_step,
             "update_altered": _altered_step}[fault]
-    out = _run("two_piece.coarse_b3" if fault == "half_batch" else "tube.fine_b1", step_fn=step)
+    out = _run(cell, step_fn=step)
     assert out["correct"] is False
     failing = [k for k, c in out["check"].items() if c["value"] > c["limit"]]
     assert failing, out["check"]
@@ -465,25 +656,38 @@ def _blocked(code: str, blocked, tmp_path) -> subprocess.CompletedProcess:
 
 
 def test_reference_imports_nothing_of_the_port(tmp_path):
-    """The reference builds and steps with ``recmv_tpu_torch`` and JAX
-    unimportable, and loads neither."""
+    """The reference builds and steps, and every scene module of
+    ``benchmark/scenes/`` loads and writes its scene, with
+    ``recmv_tpu_torch`` and JAX unimportable, and loads neither."""
     code = f"""
-import torch, json
-from benchmark.tests.test_benchmark_harness import tiny
+import importlib, pkgutil, torch, json
+import benchmark.scenes
+from benchmark.tests.test_benchmark_harness import crop_top_cell, tiny
 from benchmark import scene
 from benchmark.run import reference_record
 from benchmark import drive
+mods = [m.name for m in pkgutil.iter_modules(benchmark.scenes.__path__)]
+for m in mods:
+    importlib.import_module("benchmark.scenes." + m)
 c = tiny("tube.fine_b1")
 dev = torch.device("cpu")
 sd = scene.generate({str(tmp_path)!r} + "/scene", c["config"], c["traffic"], dev)
 rec = reference_record(c, 7, dev, sd, [[0], [1], [2]])
+ct = crop_top_cell()
+ct["traffic"].update(image=32, frames=2)
+scene.generate({str(tmp_path)!r} + "/crop_top", ct["config"], ct["traffic"], dev)
+rings = scene.curves(ct["config"])[0]
 top = {{m.split(".")[0] for m in sys.modules}}
 bad = sorted(top & {{"recmv_tpu_torch", "recmv_tpu", "jax", "jaxlib", "flax"}})
-print(json.dumps({{"bad": bad, "steps": len(rec["steps"])}}))
+print(json.dumps({{"bad": bad, "steps": len(rec["steps"]), "scenes": sorted(mods),
+                  "rings": sorted(rings)}}))
 """
     r = _blocked(code, {"recmv_tpu_torch", "recmv_tpu", "jax", "jaxlib", "flax"}, tmp_path)
     assert r.returncode == 0, r.stderr[-3000:]
-    assert json.loads(r.stdout.strip().splitlines()[-1]) == {"bad": [], "steps": 3}
+    assert json.loads(r.stdout.strip().splitlines()[-1]) == {
+        "bad": [], "steps": 3, "scenes": ["crop_top", "render"],
+        "rings": ["bottom_curve", "neck"]}
+    assert osp.isfile(osp.join(str(tmp_path), "crop_top", "scene_meta.json"))
 
 
 def test_a_run_loads_no_jax(tmp_path):

@@ -12,7 +12,9 @@ zero level sets are the meshes that the remesh extracts, and an SDF drawn
 from the run's seed gave a garment of 1,648 to 169,560 vertices (or
 none) from seed to seed, which changed the work of a step with the seed.
 So every seed runs on the same meshes, with other deformation and colour
-weights; ``SDF_SEED`` gives garments near the middle of 40 draws."""
+weights; ``SDF_SEED`` gives garments near the middle of 40 draws. A
+configuration whose garment set needs another seed, picked by the same
+40 draws, states it as ``sdf_seed``."""
 
 from __future__ import annotations
 
@@ -67,15 +69,17 @@ def layers(config: dict) -> list:
 def make_weights(config: dict, seed: int, device) -> dict:
     """{parameter name: tensor} for the leaves ``sdf.*``, ``garment_sdfs.*``,
     ``translator.*`` and ``render.*``, float32 on ``device``: the SDFs from
-    ``SDF_SEED`` + their index, the rest from ``seed``."""
+    the configuration's ``sdf_seed`` (``SDF_SEED`` where it states none) +
+    their index, the rest from ``seed``."""
     groups = {}
     for spec in layers(config):
         net = spec[0].rsplit(".lins.", 1)[0]
         groups.setdefault(net, []).append(spec)
     out = {}
     sdf_nets = [n for n in groups if n == "sdf" or n.startswith("garment_sdfs.")]
+    sdf_seed = int(config.get("sdf_seed", SDF_SEED))
     for net, specs in groups.items():
-        g_seed = SDF_SEED + sdf_nets.index(net) if net in sdf_nets else seed
+        g_seed = sdf_seed + sdf_nets.index(net) if net in sdf_nets else seed
         out.update(_draw(specs, torch.Generator(device=device).manual_seed(int(g_seed)), device))
     return out
 
